@@ -1,0 +1,536 @@
+#!/usr/bin/env python3
+"""On-card check of the PyTorch/CUDA port (`src/repro_torch`).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
+CUDA toolkit's `nvcc`; it fails on a machine without a card and when run
+outside a checkout of the repo. Phases, any failure exits non-zero:
+
+  1. device: the card's name and power limit; build every kernel from
+     `src/repro_torch/kernels/csrc` (one nvcc per source, in parallel).
+  2. kernels: each hand kernel against its plain PyTorch version on the
+     card, at the shapes of the main path, with the stated tolerance; the
+     median kernel time (CUDA events, L2 flushed before each run), the plain
+     version's time, one library call's time where PyTorch has one, and the
+     least time the card could take for the same work (`bound_ms`).
+  3. main path: `Preprocessor(SERF_AUDIO, plan="two_phase")` on the card
+     over 3 batches of `audio_batch_maker(seed=25, batch_long_chunks=4)`
+     (12 minutes of stereo 44.1 kHz audio), with the fused tail and with
+     `fuse_tail=False`; every kernel's launch count must rise; batch 0
+     must match the port's own CPU run (equal masks, cleaned audio within
+     2e-4); MB/s of source audio (median of 5 timed passes per tail, the
+     two tails in turns) and the chunks kept; one profiled pass each.
+  4. one JSON line with every kernel's numbers, then the result line
+     `{"ok": true, "device": {...}}` last.
+
+It imports only `repro_torch`, `torch` and numpy.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PASSES = 5                      # timed passes over the 3-batch stream
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
+MMSE_OPS_PER_STEP = 64          # f32 operations of one mmse_step (mmse.cuh),
+#                                 exp, sqrt and divide counted as one each
+TOL = {"fir_hpf": (1e-4, 1e-5), "stft_dft": (2e-4, 2e-4),
+       "mmse_stsa": (1e-4, 2e-5), "fused_tail": (2e-4, 2e-4),
+       "main_path": (2e-4, 2e-4)}   # (rtol, atol)
+SOURCES = {"fir_hpf": "fir", "stft_dft": "stft", "mmse_stsa": "mmse",
+           "fused_tail": "fused_tail"}
+REPLACES = {"fir_hpf": "src/repro/kernels/fir_hpf/kernel.py:62",
+            "stft_dft": "src/repro/kernels/stft_dft/kernel.py:82",
+            "mmse_stsa": "src/repro/kernels/mmse_stsa/kernel.py:91",
+            "fused_tail": "src/repro/kernels/fused_tail/kernel.py:201"}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def nvidia_smi(query):
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ----------------------------------------------------------------- timing
+
+class Timer:
+    """Median of CUDA-event times over `reps` runs after `warmup`, with the
+    50 MB L2 cache overwritten before each run (the main path finds its
+    inputs cold: each stage's output is larger than L2 or was written
+    long before)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32,
+                                 device="cuda")
+
+    def __call__(self, fn, reps=10, warmup=2):
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(reps):
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+
+def rfft_flops(n):
+    """Operations of one n-point real FFT (the usual 2.5 n log2 n count)."""
+    return 2.5 * n * math.log2(n)
+
+
+def fir_flops(n_in, n_out, T):
+    """Least operations of a T-tap FIR over n_in samples giving n_out
+    outputs: the direct form (2T per output) or overlap-save with real FFTs
+    of the power of two N >= 8T (two FFTs and N/2+1 complex products per
+    N-T+1 input samples), whichever is less."""
+    N = 1 << math.ceil(math.log2(8 * T))
+    blocks = math.ceil(n_in / (N - T + 1))
+    return min(2 * T * n_out,
+               blocks * (2 * rfft_flops(N) + 6 * (N // 2 + 1)))
+
+
+def stft_flops(frames, W):
+    """Least operations of a windowed real STFT: the window product and one
+    real FFT per frame (the kernels' dense DFT does 4·W·(W/2+1))."""
+    return frames * (W + rfft_flops(W))
+
+
+def bound(n_bytes, n_flops, peak_flops):
+    """(least ms, "bytes" or "operations"): the bytes the function must move
+    over the HBM rate against the least operations it needs over the f32
+    peak, whichever takes longer."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(torch, got, want, rtol, atol):
+    """max |got - want| and whether |got - want| <= atol + rtol*|want|
+    holds everywhere (complex compared as (re, im) pairs)."""
+    if got.is_complex():
+        got, want = torch.view_as_real(got), torch.view_as_real(want)
+    got, want = got.double(), want.double()
+    diff = (got - want).abs()
+    ok = bool((diff <= atol + rtol * want.abs()).all()) and bool(
+        torch.isfinite(got).all())
+    return float(diff.max()), ok
+
+
+# ---------------------------------------------------------------- phase 2
+
+def kernel_checks(torch, np, timer, peak_flops):
+    import torch.nn.functional as F
+
+    from repro_torch.configs import SERF_AUDIO as cfg
+    from repro_torch.kernels.fir_hpf import ops as fir_ops, ref as fir_ref
+    from repro_torch.kernels.fused_tail import ops as ft_ops, ref as ft_ref
+    from repro_torch.kernels.mmse_stsa import ops as mmse_ops
+    from repro_torch.kernels.mmse_stsa import ref as mmse_ref
+    from repro_torch.kernels.stft_dft import ops as stft_ops
+    from repro_torch.kernels.stft_dft import ref as stft_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    results = {}
+
+    def record(name, shape, err, ok, ms, plain_ms, library_ms, n_bytes,
+               n_flops, **extra):
+        bound_ms, bound_by = bound(n_bytes, n_flops, peak_flops)
+        rtol, atol = TOL[name]
+        rec = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{SOURCES[name]}.cu",
+               "replaces": REPLACES[name], "shape": shape,
+               "max_abs_err": err, "rtol": rtol, "atol": atol,
+               "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms, "bytes": n_bytes,
+               "flops": n_flops, **extra}
+        print(json.dumps(rec), flush=True)
+        check(ok, f"{name}: kernel disagrees with its plain version "
+                  f"(max |err| {err:.3g}, rtol {rtol}, atol {atol})")
+        results[name] = rec
+
+    # FIR: the compress stage, (4, 2,646,000) -> (4, 1,323,000), 129 taps
+    B, S, stride = 4, 2_646_000, 2
+    x = torch.randn((B, S), generator=gen, device="cuda") * 0.3
+    taps_np = fir_ref.bandpass_decimate_taps(1000.0, 11_025.0, 44_100, 129)
+    taps = torch.as_tensor(taps_np, device="cuda")
+    T = taps.shape[0]
+    got = fir_ops.fir_cuda(x, taps, stride)
+    want = fir_ref.fir_ref(x, taps_np, stride)
+    torch.cuda.synchronize()
+    err, ok = compare(torch, got, want, *TOL["fir_hpf"])
+    xp = F.pad(x[:, None, :], (T - 1, 0))
+    w = taps.flip(0)[None, None, :]
+    out_len = S // stride
+    record("fir_hpf", f"x ({B}, {S}) -> ({B}, {out_len}), T={T}, s={stride}",
+           err, ok,
+           timer(lambda: fir_ops.fir_cuda(x, taps, stride)),
+           timer(lambda: fir_ref.fir_ref(x, taps_np, stride)),
+           timer(lambda: F.conv1d(xp, w, stride=stride)),
+           4 * (B * S + B * out_len + T), fir_flops(B * S, B * out_len, T),
+           library_call="torch.nn.functional.conv1d (cuDNN, TF32 off)")
+    del x, xp, got, want
+
+    # STFT: the detection STFT, (16, 330,750) -> (16, 2582, 129)
+    B, S, W, H = 16, 330_750, cfg.stft_window, cfg.stft_hop
+    K = W // 2 + 1
+    x = torch.randn((B, S), generator=gen, device="cuda") * 0.3
+    got = stft_ops.stft_cuda(x, W, H)
+    want = stft_ref.stft_ref(x, W, H)
+    torch.cuda.synchronize()
+    err, ok = compare(torch, got, want, *TOL["stft_dft"])
+    Fr = got.shape[1]
+    win = torch.as_tensor(stft_ref.hamming(W), dtype=torch.float32,
+                          device="cuda")
+    lib = torch.stft(x, n_fft=W, hop_length=H, window=win, center=False,
+                     return_complex=True)
+    lib_err = float((lib.transpose(1, 2) - want).abs().max())
+    record("stft_dft", f"x ({B}, {S}) -> ({B}, {Fr}, {K}) complex", err, ok,
+           timer(lambda: stft_ops.stft_cuda(x, W, H)),
+           timer(lambda: stft_ref.stft_ref(x, W, H)),
+           timer(lambda: torch.stft(x, n_fft=W, hop_length=H, window=win,
+                                    center=False, return_complex=True)),
+           4 * B * ((Fr - 1) * H + W) + 4 * W + 8 * B * Fr * K,
+           stft_flops(B * Fr, W),
+           library_call="torch.stft (cuFFT; (B, K, F) layout)",
+           library_max_abs_err=lib_err)
+    del x, got, want, lib
+
+    # MMSE gain: the staged survivor tail, power (16, 860, 129)
+    R, Fv = 16, 860
+    rng = np.random.RandomState(5)
+    p = rng.exponential(1.0, (R, Fv, K)).astype(np.float32)
+    p[:, Fv // 4:Fv // 2, :K // 3] += 40.0       # a loud region
+    power = torch.as_tensor(p, device="cuda")
+    noise = mmse_ref.estimate_noise_psd(power, cfg.noise_est_frames)
+    args = (cfg.mmse_alpha, cfg.mmse_gain_floor)
+    got = mmse_ops.mmse_gain_cuda(power, noise, *args)
+    want = mmse_ref.mmse_stsa_gain_ref(power, noise, *args)
+    torch.cuda.synchronize()
+    err, ok = compare(torch, got, want, *TOL["mmse_stsa"])
+    record("mmse_stsa", f"power ({R}, {Fv}, {K}), noise ({R}, {K})", err, ok,
+           timer(lambda: mmse_ops.mmse_gain_cuda(power, noise, *args)),
+           timer(lambda: mmse_ref.mmse_stsa_gain_ref(power, noise, *args),
+                 reps=3, warmup=1),
+           None, 4 * (2 * R * Fv * K + R * K), MMSE_OPS_PER_STEP * R * Fv * K)
+    del power, noise, got, want
+
+    # fused tail: wave (48, 110,250), 16 indices with one pad slot
+    B, S = 48, 110_250
+    wave = torch.randn((B, S), generator=gen, device="cuda") * 0.3
+    real = np.sort(np.random.RandomState(7).choice(B, 15, replace=False))
+    idx_np = np.concatenate([real, [B]]).astype(np.int32)
+    idx = torch.as_tensor(idx_np, device="cuda")
+    R = len(idx_np)
+    n_real = len(real)
+    Fv = stft_ref.num_frames(S, W, H)
+    variants = {}
+    for hpf in (False, True):
+        got = ft_ops.fused_tail_spectrum_cuda(wave, idx, cfg, hpf)
+        want = ft_ref.fused_tail_spectrum_ref(wave, idx, cfg, hpf)
+        cleaned = ft_ops.fused_tail(wave, idx, cfg, hpf)
+        cleaned_ref = ft_ref.fused_tail_ref(wave, idx, cfg, hpf)
+        torch.cuda.synchronize()
+        err, ok = compare(torch, got, want, *TOL["fused_tail"])
+        werr, wok = compare(torch, cleaned, cleaned_ref, *TOL["fused_tail"])
+        check(not bool(torch.view_as_real(got[-1]).any()),
+              f"fused_tail (hpf={hpf}): pad row is not exactly zero")
+        check(not bool(cleaned[-1].any()),
+              f"fused_tail (hpf={hpf}): cleaned pad row is not zero")
+        # the least work: real FFTs, the recurrence and the gain product
+        # on the real rows (the pad row only writes zeros)
+        span = (Fv - 1) * H + W                    # samples the frames use
+        T = cfg.hpf_taps if hpf else 0
+        n_flops = (n_real * (stft_flops(Fv, W)
+                             + (MMSE_OPS_PER_STEP + 2) * Fv * K)
+                   + (fir_flops(n_real * span, n_real * span, T) if hpf
+                      else 0))
+        n_bytes = 4 * (n_real * span + R + W + T) + 8 * R * Fv * K
+        variants[hpf] = dict(
+            err=err, ok=ok and wok, wave_err=werr,
+            ms=timer(lambda: ft_ops.fused_tail_spectrum_cuda(wave, idx, cfg,
+                                                             hpf)),
+            plain_ms=timer(lambda: ft_ref.fused_tail_spectrum_ref(
+                wave, idx, cfg, hpf), reps=3, warmup=1),
+            n_bytes=n_bytes, n_flops=n_flops)
+    v, vh = variants[False], variants[True]
+    hb, hby = bound(vh["n_bytes"], vh["n_flops"], peak_flops)
+    check(vh["ok"], f"fused_tail with hpf: kernel disagrees with its plain "
+                    f"version (max |err| {vh['err']:.3g})")
+    record("fused_tail",
+           f"wave ({B}, {S}), idx ({R},) with 1 pad slot -> ({R}, {Fv}, {K}) "
+           "complex", v["err"], v["ok"], v["ms"], v["plain_ms"], None,
+           v["n_bytes"], v["n_flops"], cleaned_max_abs_err=v["wave_err"],
+           hpf={"max_abs_err": vh["err"], "cleaned_max_abs_err":
+                vh["wave_err"], "ms": vh["ms"], "plain_ms": vh["plain_ms"],
+                "bound_ms": hb, "bound_by": hby})
+    return results
+
+
+# ---------------------------------------------------------------- phase 3
+
+def mask_margins(torch, graph, audio):
+    """Each detector index of batch 0 (CPU run), its threshold and every
+    chunk's margin to it, for reporting a mask that differs between the
+    card and the CPU."""
+    from repro_torch.core import indices as I
+    cfg = graph.cfg
+    thresholds15 = {"psd": cfg.rain_psd_min,
+                    "flatness": cfg.rain_flatness_min,
+                    "snr": cfg.rain_snr_max,
+                    "cicada_peakiness": cfg.cicada_peakiness_min,
+                    "cicada_band": cfg.cicada_band_ratio_min,
+                    "cicada_persistence": cfg.cicada_persistence_min}
+    state = {"wave": torch.as_tensor(audio)}
+    out = {}
+    for st in graph.stages[:graph._cut()]:
+        state = st.apply(state)
+        if st.name == "cicada_bandstop":           # 15 s chunks
+            for k, thr in thresholds15.items():
+                out[k] = {"threshold": thr, "margin":
+                          (state["indices"][k] - thr).tolist()}
+        if st.name == "detect_silence":            # 5 s chunks
+            thr = cfg.silence_snr_threshold
+            out["snr5"] = {"threshold": thr, "margin":
+                           (I.snr_est(state["power"]) - thr).tolist()}
+    return out
+
+
+def device_profile(torch, pre, batches):
+    """Device time by kernel over one pass of the main path under
+    `torch.profiler`, and the share of that pass's wall time the device was
+    busy. The profiler slows the host side, so the share is a lower bound
+    of the unprofiled run's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        list(pre.run(batches))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            by_name[e.key] = (us / 1e3, e.count)
+    if not by_name:
+        return {"device_busy_ms": "not measured", "wall_ms": wall_ms}
+    busy = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms,
+            "top": [[k[:80], ms, n] for k, (ms, n) in top]}
+
+
+def main_path(torch, np, card):
+    from repro_torch import kernels
+    from repro_torch.configs import SERF_AUDIO
+    from repro_torch.core.plans import Preprocessor
+    from repro_torch.data.loader import audio_batch_maker
+
+    make = audio_batch_maker(seed=25, batch_long_chunks=4)
+    batches = [(w, make(w)) for w in range(3)]     # set-up, not timed
+    src = sum(c.nbytes for _, (c, _) in batches)
+    cells = {"fused": Preprocessor(SERF_AUDIO, plan="two_phase"),
+             "staged": Preprocessor(SERF_AUDIO, plan="two_phase",
+                                    fuse_tail=False)}
+    results, launch_counts = {}, {}
+    for label, pre in cells.items():
+        check(pre.device.type == "cuda", "Preprocessor did not pick the card")
+        pre(batches[0][1][0])           # warm-up: cuFFT plans, allocator
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        results[label] = list(pre.run(batches))    # the main-path run
+        torch.cuda.synchronize()
+        launch_counts[label] = kernels.launches()
+    # timed passes, the cells in turns (fused, staged, staged, fused, ...)
+    # so that neither always runs first
+    pass_times = {label: [] for label in cells}
+    for rep in range(PASSES):
+        for label in (list(cells) if rep % 2 == 0 else list(cells)[::-1]):
+            t0 = time.perf_counter()
+            list(cells[label].run(batches))
+            torch.cuda.synchronize()
+            pass_times[label].append(time.perf_counter() - t0)
+
+    runs = {}
+    for label, pre in cells.items():
+        res, counts, pass_s = (results[label], launch_counts[label],
+                               pass_times[label])
+        mb_per_s = sorted(src / 2**20 / s for s in pass_s)
+        # per-layer split: one more pass, synchronising between the phases
+        detect_ms, tail_ms = [], []
+        for _, (audio, _) in batches:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            det = pre.plan.detect(audio)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            pre.plan._finish(det)
+            t3 = time.perf_counter()
+            detect_ms.append((t2 - t1) * 1e3)
+            tail_ms.append((t3 - t2) * 1e3)
+        kept = sum(r.n_kept for r in res)
+        chunks = sum(int(r.det.keep.numel()) for r in res)
+        for r in res:
+            check(r.cleaned.shape == (r.n_kept, SERF_AUDIO.final_split_samples)
+                  and np.isfinite(r.cleaned).all(),
+                  f"{label}: cleaned batch {r.wid} is malformed")
+        med = statistics.median(mb_per_s)
+        rec = {"main_path": label, "launches": counts, "passes": PASSES,
+               "pass_s": pass_s, "mb_per_s_median": med,
+               "mb_per_s_min": mb_per_s[0], "mb_per_s_max": mb_per_s[-1],
+               "src_mb": src / 2**20, "kept": kept, "chunks": chunks,
+               "detect_ms": detect_ms, "tail_ms": tail_ms,
+               "timings": [r.timings for r in res],
+               "profile": device_profile(torch, pre, batches)}
+        runs[label] = dict(rec, res=res)
+        print(f"plan=two_phase tail={label} card={card}  "
+              f"{src / 2**20:.0f} MB source audio per pass, median of "
+              f"{PASSES} passes  ->  {med:.2f} MB/s", flush=True)
+        print(f"chunks kept {kept}/{chunks} (tail={label})", flush=True)
+        print(json.dumps(rec), flush=True)
+
+    need = {"fused": ("fir_hpf", "stft_dft", "fused_tail"),
+            "staged": ("fir_hpf", "stft_dft", "mmse_stsa")}
+    for label, names in need.items():
+        for n in names:
+            check(runs[label]["launches"][n] > 0,
+                  f"main path ({label} tail) never launched kernel {n}")
+
+    fused, staged = runs["fused"]["res"], runs["staged"]["res"]
+    for a, b in zip(fused, staged):
+        check(bool((a.det.keep == b.det.keep).all()),
+              "fused and staged runs disagree on the keep mask")
+        check(a.cleaned.shape == b.cleaned.shape and np.allclose(
+            a.cleaned, b.cleaned, rtol=2e-4, atol=2e-4),
+            "fused and staged tails disagree beyond 2e-4")
+
+    # batch 0 against the port's own CPU run on the same numpy input
+    chunks0 = batches[0][1][0]
+    cpu_pre = Preprocessor(SERF_AUDIO, plan="two_phase", device="cpu")
+    cpu = cpu_pre(chunks0)
+    report = {}
+    for label in ("fused", "staged"):
+        gpu = runs[label]["res"][0]
+        flips = {}
+        for m in ("keep", "rain", "silence", "cicada15"):
+            g = getattr(gpu.det, m).cpu().numpy()
+            c = getattr(cpu.det, m).numpy()
+            if not (g == c).all():
+                flips[m] = np.flatnonzero(g != c).tolist()
+        if flips:
+            print(json.dumps({"mask_flips": flips, "margins": mask_margins(
+                torch, cpu_pre.graph, chunks0)}), flush=True)
+        check(not flips, f"{label}: masks differ from the CPU run: {flips}")
+        rtol, atol = TOL["main_path"]
+        diff = (float(np.abs(gpu.cleaned - cpu.cleaned).max())
+                if cpu.n_kept else 0.0)
+        report[label] = diff
+        check(gpu.cleaned.shape == cpu.cleaned.shape and np.allclose(
+            gpu.cleaned, cpu.cleaned, rtol=rtol, atol=atol),
+            f"{label}: cleaned audio differs from the CPU run "
+            f"(max |err| {diff:.3g})")
+    print(json.dumps({"batch0_vs_cpu": report, "kept": cpu.n_kept,
+                      "chunks": int(cpu.det.keep.numel())}), flush=True)
+    return runs
+
+
+# ------------------------------------------------------------------- main
+
+def main():
+    src = ROOT / "src"
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script; "
+              "run it from a checkout of the repo", file=sys.stderr)
+        return 2
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    # plain versions on the card run in full f32, as the kernels do
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    from repro_torch.kernels import KERNELS, _build
+
+    # phase 1: device + build
+    card_line = nvidia_smi("name,power.limit")
+    print(card_line, flush=True)
+    max_clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    props = torch.cuda.get_device_properties(0)
+    peak_flops = props.multi_processor_count * 128 * 2 * max_clock_mhz * 1e6
+    print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
+                      "sms": props.multi_processor_count,
+                      "max_sm_clock_mhz": max_clock_mhz,
+                      "f32_fma_peak_tflops": peak_flops / 1e12}), flush=True)
+    t0 = time.perf_counter()
+    _build.build()
+    print(f"build: {len(_build.SOURCES)} kernel libraries in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    for name in _build.SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}", flush=True)
+
+    try:
+        timer = Timer(torch)
+        results = kernel_checks(torch, np, timer, peak_flops)
+        runs = main_path(torch, np, card_line)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+
+    for name, rec in results.items():
+        rec["launches"] = sum(r["launches"][name] for r in runs.values())
+        rec["launches_per_run"] = {k: r["launches"][name]
+                                   for k, r in runs.items()}
+    if set(results) != set(KERNELS):
+        print("chip_smoke: FAIL: not every kernel was checked",
+              file=sys.stderr)
+        return 1
+    summary = {"kernels": [results[n] for n in KERNELS]}
+    print(card_line, flush=True)
+    print(json.dumps(summary), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,63 @@
+"""Public wrappers for the STFT kernel.
+
+Dispatch goes by the tensor's device: a CPU tensor runs `ref.stft_ref`
+(`torch.fft.rfft`), a CUDA tensor launches `csrc/stft.cu`. The kernel
+reads overlapping frames straight from the row, so it needs no padding.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels._build import CudaKernel, require_cuda
+from repro_torch.kernels.stft_dft import ref as R
+
+KERNEL = CudaKernel("stft", "stft_forward", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int])
+
+
+@functools.lru_cache(maxsize=16)
+def basis_on(device, window):
+    """The interleaved windowed DFT basis (window, 2K) on `device`."""
+    return torch.as_tensor(R.interleaved_basis(window), device=device)
+
+
+def stft_cuda(x, window=256, hop=128):
+    """The hand kernel: x (B, S) f32 CUDA -> complex64 (B, F, K),
+    F = (S - window) // hop + 1."""
+    x = x.float().contiguous()
+    basis = basis_on(x.device, window)
+    dev = require_cuda(x, basis)
+    B, S = x.shape
+    K = window // 2 + 1
+    F = R.num_frames(S, window, hop)
+    if not 1 <= B <= 65535 or F < 1:
+        raise ValueError(f"stft_cuda: unsupported B={B}, S={S}")
+    out = torch.empty((B, F, K, 2), dtype=torch.float32, device=dev)
+    KERNEL(dev, x.data_ptr(), basis.data_ptr(), out.data_ptr(), B, S, F, K,
+           window, hop)
+    return torch.view_as_complex(out)
+
+
+def stft(x, window=256, hop=128):
+    """x: (B, S) -> complex (B, F, window//2+1), by the tensor's device."""
+    if x.device.type == "cpu":
+        return R.stft_ref(x, window, hop)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return stft_cuda(x, window, hop)
+
+
+def stft_power(x, window=256, hop=128):
+    """x: (B, S) -> power spectrum (B, F, bins) f32."""
+    z = stft(x, window, hop)
+    return z.real ** 2 + z.imag ** 2
+
+
+def istft(z, n_samples, window=256, hop=128):
+    """Inverse STFT (irfft overlap-add; cuFFT on the card)."""
+    return R.istft_ref(z, n_samples, window, hop)

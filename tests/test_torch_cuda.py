@@ -1,0 +1,108 @@
+"""The hand CUDA kernels against their plain PyTorch versions, on the card.
+
+A CUDA kernel has no CPU mode, so every test here needs a card and skips
+without one (decided inside the `card` fixture, never at import). On a
+machine with an H100 and the CUDA toolkit:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+No JAX: the machine with the card need not have it. Small shapes here;
+`chip_smoke.py` repeats the comparison at the main path's shapes.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.configs import SERF_AUDIO as cfg
+from repro_torch.kernels.fir_hpf import ops as FO
+from repro_torch.kernels.fir_hpf import ref as FR
+from repro_torch.kernels.fused_tail import ops as TO
+from repro_torch.kernels.fused_tail import ref as TR
+from repro_torch.kernels.mmse_stsa import ops as MO
+from repro_torch.kernels.mmse_stsa import ref as MR
+from repro_torch.kernels.stft_dft import ops as SO
+from repro_torch.kernels.stft_dft import ref as SR
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand kernels have no CPU mode "
+                    "(run this file on the card)")
+    torch.backends.cudnn.allow_tf32 = False    # the plain FIR is a conv1d
+    return torch.device("cuda")
+
+
+def _close(got, want, rtol, atol):
+    if got.is_complex():
+        got, want = torch.view_as_real(got), torch.view_as_real(want)
+    torch.testing.assert_close(got.cpu(), want.cpu(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("stride,S,taps", [(1, 5000, 129), (2, 10_000, 129),
+                                           (2, 8193, 65), (3, 9001, 33)])
+def test_fir_kernel(card, stride, S, taps):
+    rng = np.random.RandomState(stride * S % 97)
+    x = torch.as_tensor(rng.randn(2, S).astype(np.float32), device=card)
+    h = FR.bandpass_decimate_taps(1000.0, 11_025.0, 44_100, taps)
+    before = FO.KERNEL.launches
+    got = FO.fir_cuda(x, torch.as_tensor(h, device=card), stride)
+    assert FO.KERNEL.launches == before + 1
+    _close(got, FR.fir_ref(x, h, stride), 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("S", [256, 16_511, 40_000])
+def test_stft_kernel(card, S):
+    x = torch.randn(3, S, device=card)
+    got = SO.stft_cuda(x)
+    assert got.shape == (3, SR.num_frames(S, 256, 128), 129)
+    _close(got, SR.stft_ref(x), 2e-4, 2e-4)
+
+
+@pytest.mark.parametrize("B,F,K", [(1, 32, 128), (2, 64, 129), (1, 16, 256)])
+def test_mmse_kernel(card, B, F, K):
+    rng = np.random.RandomState(B + F + K)
+    p = rng.exponential(1.0, (B, F, K)).astype(np.float32)
+    p[:, F // 4:F // 2, :K // 3] += 40.0
+    power = torch.as_tensor(p, device=card)
+    noise = MR.estimate_noise_psd(power, 8)
+    _close(MO.mmse_gain_cuda(power, noise), MR.mmse_stsa_gain_ref(power, noise),
+           1e-4, 2e-5)
+
+
+@pytest.mark.parametrize("hpf", [False, True])
+@pytest.mark.parametrize("S", [16_640, 40_000])
+def test_fused_tail_kernel(card, hpf, S):
+    wave = torch.randn(5, S, device=card) * 0.3
+    idx = torch.tensor([3, 0, 4, 7, 5], dtype=torch.int32, device=card)
+    got = TO.fused_tail_spectrum_cuda(wave, idx, cfg, hpf)
+    _close(got, TR.fused_tail_spectrum_ref(wave, idx, cfg, hpf), 2e-4, 2e-4)
+    assert not torch.view_as_real(got[3:]).any()     # pad rows exactly zero
+    _close(TO.fused_tail(wave, idx, cfg, hpf), TR.fused_tail_ref(wave, idx, cfg,
+                                                                 hpf),
+           2e-4, 2e-4)
+
+
+def test_wrappers_dispatch_cuda_tensors_to_kernels(card):
+    kernels.reset_launches()
+    x = torch.randn(2, 30_000, device=card)
+    FO.bandpass_decimate(x)
+    p = SO.stft_power(x)
+    MO.mmse_gain(p, p[:, :16].mean(1))
+    TO.fused_tail(x, torch.tensor([1, 2], dtype=torch.int32, device=card),
+                  cfg)
+    assert kernels.launches() == {"fir_hpf": 1, "stft_dft": 1,
+                                  "mmse_stsa": 1, "fused_tail": 1}
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(card):
+    with pytest.raises(ValueError):
+        FO.fir_cuda(torch.randn(2, 100, device=card),
+                    torch.ones(5, dtype=torch.float64, device=card))
+    with pytest.raises(ValueError):
+        SO.stft_cuda(torch.randn(2, 1000))              # a CPU tensor
+    with pytest.raises(ValueError):
+        TO.fused_tail_spectrum_cuda(
+            torch.randn(2, 1000, device=card),
+            torch.tensor([0], dtype=torch.int64, device=card), cfg)
