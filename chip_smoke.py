@@ -13,7 +13,10 @@ outside a checkout of the repo. Phases, any failure exits non-zero:
      card, at the shapes of the main path, with the stated tolerance; the
      median kernel time (CUDA events, L2 flushed before each run), the plain
      version's time, one library call's time where PyTorch has one, and the
-     least time the card could take for the same work (`bound_ms`).
+     least time the card could take for the same work (`bound_ms`). The
+     fused tail also at all 48 rows, with the high-pass, and with
+     noise_est_frames = 100; `chain_ms` is the MMSE kernel on one chain of
+     860 frames, the recurrence's latency floor.
   3. main path: `Preprocessor(SERF_AUDIO, plan="two_phase")` on the card
      over 3 batches of `audio_batch_maker(seed=25, batch_long_chunks=4)`
      (12 minutes of stereo 44.1 kHz audio), with the fused tail and with
@@ -28,6 +31,7 @@ It imports only `repro_torch`, `torch` and numpy.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -215,10 +219,12 @@ def kernel_checks(torch, np, timer, peak_flops):
            timer(lambda: stft_ref.stft_ref(x, W, H)),
            timer(lambda: torch.stft(x, n_fft=W, hop_length=H, window=win,
                                     center=False, return_complex=True)),
-           4 * B * ((Fr - 1) * H + W) + 4 * W + 8 * B * Fr * K,
+           4 * B * ((Fr - 1) * H + W) + 4 * 3 * W + 8 * B * Fr * K,
            stft_flops(B * Fr, W),
            library_call="torch.stft (cuFFT; (B, K, F) layout)",
            library_max_abs_err=lib_err)
+    rec = results["stft_dft"]
+    rec["kernel_over_library"] = rec["ms"] / rec["library_ms"]
     del x, got, want, lib
 
     # MMSE gain: the staged survivor tail, power (16, 860, 129)
@@ -233,62 +239,87 @@ def kernel_checks(torch, np, timer, peak_flops):
     want = mmse_ref.mmse_stsa_gain_ref(power, noise, *args)
     torch.cuda.synchronize()
     err, ok = compare(torch, got, want, *TOL["mmse_stsa"])
+    # the recurrence's latency floor: one chain of Fv dependent steps
+    p1, n1 = power[:1, :, :1].contiguous(), noise[:1, :1].contiguous()
+    chain_ms = timer(lambda: mmse_ops.mmse_gain_cuda(p1, n1, *args))
     record("mmse_stsa", f"power ({R}, {Fv}, {K}), noise ({R}, {K})", err, ok,
            timer(lambda: mmse_ops.mmse_gain_cuda(power, noise, *args)),
            timer(lambda: mmse_ref.mmse_stsa_gain_ref(power, noise, *args),
                  reps=3, warmup=1),
-           None, 4 * (2 * R * Fv * K + R * K), MMSE_OPS_PER_STEP * R * Fv * K)
+           None, 4 * (2 * R * Fv * K + R * K), MMSE_OPS_PER_STEP * R * Fv * K,
+           chain_ms=chain_ms, chain_shape=f"(1, {Fv}, 1)")
     del power, noise, got, want
 
-    # fused tail: wave (48, 110,250), 16 indices with one pad slot
+    # fused tail: wave (48, 110,250), 16 indices with one pad slot, and all
+    # 48 rows; with and without the high-pass; noise_est_frames = 100
     B, S = 48, 110_250
     wave = torch.randn((B, S), generator=gen, device="cuda") * 0.3
     real = np.sort(np.random.RandomState(7).choice(B, 15, replace=False))
-    idx_np = np.concatenate([real, [B]]).astype(np.int32)
-    idx = torch.as_tensor(idx_np, device="cuda")
-    R = len(idx_np)
-    n_real = len(real)
     Fv = stft_ref.num_frames(S, W, H)
-    variants = {}
-    for hpf in (False, True):
-        got = ft_ops.fused_tail_spectrum_cuda(wave, idx, cfg, hpf)
-        want = ft_ref.fused_tail_spectrum_ref(wave, idx, cfg, hpf)
-        cleaned = ft_ops.fused_tail(wave, idx, cfg, hpf)
-        cleaned_ref = ft_ref.fused_tail_ref(wave, idx, cfg, hpf)
+
+    def fused_case(idx_np, tcfg, hpf, time_plain=True):
+        idx = torch.as_tensor(np.asarray(idx_np, np.int32), device="cuda")
+        pads = [i for i, v in enumerate(idx_np) if not 0 <= v < B]
+        n_real = len(idx_np) - len(pads)
+        got = ft_ops.fused_tail_spectrum_cuda(wave, idx, tcfg, hpf)
+        want = ft_ref.fused_tail_spectrum_ref(wave, idx, tcfg, hpf)
+        cleaned = ft_ops.fused_tail(wave, idx, tcfg, hpf)
+        cleaned_ref = ft_ref.fused_tail_ref(wave, idx, tcfg, hpf)
         torch.cuda.synchronize()
         err, ok = compare(torch, got, want, *TOL["fused_tail"])
         werr, wok = compare(torch, cleaned, cleaned_ref, *TOL["fused_tail"])
-        check(not bool(torch.view_as_real(got[-1]).any()),
-              f"fused_tail (hpf={hpf}): pad row is not exactly zero")
-        check(not bool(cleaned[-1].any()),
-              f"fused_tail (hpf={hpf}): cleaned pad row is not zero")
+        for i in pads:
+            check(not bool(torch.view_as_real(got[i]).any()),
+                  f"fused_tail (hpf={hpf}): pad row is not exactly zero")
+            check(not bool(cleaned[i].any()),
+                  f"fused_tail (hpf={hpf}): cleaned pad row is not zero")
         # the least work: real FFTs, the recurrence and the gain product
-        # on the real rows (the pad row only writes zeros)
+        # on the real rows (a pad row only writes zeros)
         span = (Fv - 1) * H + W                    # samples the frames use
-        T = cfg.hpf_taps if hpf else 0
+        T = tcfg.hpf_taps if hpf else 0
         n_flops = (n_real * (stft_flops(Fv, W)
                              + (MMSE_OPS_PER_STEP + 2) * Fv * K)
                    + (fir_flops(n_real * span, n_real * span, T) if hpf
                       else 0))
-        n_bytes = 4 * (n_real * span + R + W + T) + 8 * R * Fv * K
-        variants[hpf] = dict(
-            err=err, ok=ok and wok, wave_err=werr,
-            ms=timer(lambda: ft_ops.fused_tail_spectrum_cuda(wave, idx, cfg,
+        n_bytes = 4 * (n_real * span + len(idx_np) + 3 * W + T) \
+            + 8 * len(idx_np) * Fv * K
+        b_ms, b_by = bound(n_bytes, n_flops, peak_flops)
+        return dict(
+            err=err, ok=ok and wok, wave_err=werr, rows=len(idx_np),
+            ms=timer(lambda: ft_ops.fused_tail_spectrum_cuda(wave, idx, tcfg,
                                                              hpf)),
-            plain_ms=timer(lambda: ft_ref.fused_tail_spectrum_ref(
-                wave, idx, cfg, hpf), reps=3, warmup=1),
-            n_bytes=n_bytes, n_flops=n_flops)
-    v, vh = variants[False], variants[True]
-    hb, hby = bound(vh["n_bytes"], vh["n_flops"], peak_flops)
-    check(vh["ok"], f"fused_tail with hpf: kernel disagrees with its plain "
-                    f"version (max |err| {vh['err']:.3g})")
+            plain_ms=(timer(lambda: ft_ref.fused_tail_spectrum_ref(
+                wave, idx, tcfg, hpf), reps=3, warmup=1) if time_plain
+                else None),
+            n_bytes=n_bytes, n_flops=n_flops, bound_ms=b_ms, bound_by=b_by)
+
+    idx16 = [*real.tolist(), B]
+    idx48 = list(range(B))
+    noise100 = dataclasses.replace(cfg, noise_est_frames=100)
+    cases = {"hpf": fused_case(idx16, cfg, True),
+             "rows48": fused_case(idx48, cfg, False, time_plain=False),
+             "rows48_hpf": fused_case(idx48, cfg, True, time_plain=False),
+             "noise100": fused_case(idx16, noise100, False,
+                                    time_plain=False),
+             "noise100_hpf": fused_case(idx16, noise100, True,
+                                        time_plain=False)}
+    v = fused_case(idx16, cfg, False)
+    for label, c in cases.items():
+        check(c["ok"], f"fused_tail ({label}): kernel disagrees with its "
+                       f"plain version (max |err| {c['err']:.3g})")
+
+    def extra(c):
+        return {"rows": c["rows"], "max_abs_err": c["err"],
+                "cleaned_max_abs_err": c["wave_err"], "ms": c["ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"]}
+
     record("fused_tail",
-           f"wave ({B}, {S}), idx ({R},) with 1 pad slot -> ({R}, {Fv}, {K}) "
-           "complex", v["err"], v["ok"], v["ms"], v["plain_ms"], None,
-           v["n_bytes"], v["n_flops"], cleaned_max_abs_err=v["wave_err"],
-           hpf={"max_abs_err": vh["err"], "cleaned_max_abs_err":
-                vh["wave_err"], "ms": vh["ms"], "plain_ms": vh["plain_ms"],
-                "bound_ms": hb, "bound_by": hby})
+           f"wave ({B}, {S}), idx ({len(idx16)},) with 1 pad slot -> "
+           f"({len(idx16)}, {Fv}, {K}) complex", v["err"], v["ok"], v["ms"],
+           v["plain_ms"], None, v["n_bytes"], v["n_flops"],
+           cleaned_max_abs_err=v["wave_err"], chain_ms=chain_ms,
+           **{label: extra(c) for label, c in cases.items()})
     return results
 
 

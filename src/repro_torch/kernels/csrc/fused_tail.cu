@@ -10,149 +10,274 @@
 // the main path: wave (48, 110,250), R padded survivor indices ->
 // (R, 860, 129).
 //
-// What bounds it on an H100: operations, the DFT's 2*256*258 flops per
-// frame against 512 bytes read and 1,032 written; with the high-pass, 258
-// more flops per sample. The MMSE recurrence adds a latency-bound chain of
-// 860 dependent steps per (row, bin).
+// What bounds it on an H100: not bytes (each row's 441 KB is read once and
+// its 888 KB written once) and not operations, but the MMSE recurrence: a
+// chain of Fv dependent steps per (row, bin), whose latency no amount of
+// parallelism across bins shortens. Everything else has to hide under it.
 //
-// Design: the TPU kernel keeps a whole row's frames, spectrum, power and
-// gains resident (about 5.5 MB per row); an SM has 227 KB. Everything after
-// the DFT is per bin, so the grid is (bin tile of DFT_BINS, survivor row)
-// and each block streams the row in chunks of DFT_FRAMES frames:
-//   - it reads its own index, writes exact zeros for a pad slot and stops;
-//   - per chunk it loads one contiguous span of samples (with the high-pass,
-//     the raw span plus a T-1 sample halo, filtered in shared memory);
-//   - it multiplies the chunk's frames by its bin tile's basis columns
-//     (dft.cuh) into a spectrum tile in shared memory;
-//   - on the first chunk warp 0 forms the noise mean before the recurrence;
-//   - warp 0 (one thread per bin) carries A^2/lambda across chunks in a
-//     register and writes re*g, im*g for the valid frames, while the other
-//     warps already load the next chunk.
-// Shared memory: 115 KB per block, 150 KB with the high-pass. At small R the
-// grid fills few of the 132 SMs (5 bin tiles per row).
+// Design: one block per survivor row, warp-specialised.
+//   - A pad slot writes the row's exact zeros and exits.
+//   - Producer warps (PRODUCERS threads) stream the row in chunks of
+//     FftShape<W>::FRAMES frames. Chunk c+1's span (with the high-pass,
+//     plus its Tp-1 sample halo) is copied into one of two stage buffers by
+//     cp.async while chunk c is worked on: with the high-pass, the FIR in
+//     shared memory (8 outputs per thread from a register window, 8 taps
+//     per window); then fft.cuh's complex FFT passes over every frame, the
+//     last pass writing into one of two ring slots in shared memory.
+//   - Consumer warps (one thread per bin) read their bin's pair Z[k],
+//     Z[N-k] of every frame from the slot, do the real FFT's even/odd split
+//     (off the chain), carry A^2/lambda in a register through mmse_step
+//     (mmse.cuh, shared with the staged kernel) and write re*g, im*g, a
+//     warp's stores consecutive in memory.
+//   - The roles hand slots over with named barriers (bar.arrive by the
+//     side that is done, bar.sync by the side that waits), so the producers
+//     load, filter and transform chunk c+1 while the consumers run chunk
+//     c's recurrence. The producers synchronise among themselves on a third
+//     named barrier.
+//   - Noise: with min(noise_frames, Fv) <= FRAMES the consumers sum the
+//     power of chunk 0's first frames before its recurrence. A larger count
+//     costs prologue chunks: the producers transform those frames first and
+//     the consumers only sum them; the main loop then transforms them again.
+// Shared memory at W = 256: 64 KB of ring, 64 KB of FFT buffers, 34 KB of
+// stage buffers (with the high-pass 35 KB, and 0.5 KB of taps), 3 KB of
+// table; one block per SM, which is all one row needs.
 #include "common.cuh"
-#include "dft.cuh"
-#include "fir.cuh"
+#include "fft.cuh"
 #include "mmse.cuh"
 
-__global__ void __launch_bounds__(DFT_THREADS)
-fused_tail_kernel(const float* __restrict__ wave, const int* __restrict__ idx,
-                  const float* __restrict__ basis,
-                  const float* __restrict__ taps, float* __restrict__ out,
-                  int B, long long S, int Fv, int K, int window, int hop,
-                  int T, int noise_frames, float alpha, float gain_floor) {
-  extern __shared__ float smem[];
-  const int span_len = (DFT_FRAMES - 1) * hop + window;
-  float* basis_s = smem;
-  float* span = basis_s + window * DFT_COLS;
-  float* spec_s = span + span_len;
-  float* xs = spec_s + DFT_FRAMES * DFT_COLS;  // high-pass input, T > 0 only
-  float* taps_s = xs + span_len + T - 1;       // T > 0 only
+// Producers: 15 warps load, filter and transform. A warp issues from the
+// scheduler numbered warp mod 4, so at W = 256 the 5 consumer warps that
+// follow land two on scheduler 3, which then has one producer warp fewer.
+// On an H100, 15 producer warps came within 1% of the fastest of 8, 12,
+// 14, 15 and 16, both with and without the high-pass.
+constexpr int PRODUCERS = 480;
+constexpr int BAR_PRODUCERS = 1;   // named barrier ids; 0 is __syncthreads
+constexpr int BAR_FULL = 2;        // + slot: slot written by the producers
+constexpr int BAR_EMPTY = 4;       // + slot: slot read by the consumers
+constexpr int FIR_OUT = 8;         // FIR outputs per thread
+constexpr int FIR_TAPS = 8;        // taps per register window
 
-  const int k0 = blockIdx.x * DFT_BINS;
-  const int r = blockIdx.y;
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  __threadfence_block();   // this thread's shared stores before the signal
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+template <int W>
+struct TailShape {
+  using Sh = FftShape<W>;
+  static constexpr int CONSUMERS = 32 * ((Sh::K + 31) / 32);
+  static constexpr int THREADS = PRODUCERS + CONSUMERS;
+  // floats of one raw span with its halo of Tp - 1 samples, plus one float
+  // that the FIR's last register window reads, rounded to 16 bytes
+  __host__ __device__ static constexpr int stage_floats(int Tp) {
+    return (Sh::SPAN + Tp + 3) / 4 * 4;
+  }
+};
+
+// span[j] = sum_k taps[k] * xs[j + Tp-1 - k] for s0 + j < S, else 0, with
+// the taps zero-padded to Tp, a multiple of FIR_TAPS; summed in tap order.
+template <int W>
+__device__ __forceinline__ void fir_span(const float* xs, const float* taps,
+                                         int Tp, long long S, long long s0,
+                                         float* span, int t) {
+  using Sh = FftShape<W>;
+  for (int it = t; it < Sh::SPAN / FIR_OUT; it += PRODUCERS) {
+    const int j0 = it * FIR_OUT;
+    float acc[FIR_OUT];
+#pragma unroll
+    for (int m = 0; m < FIR_OUT; ++m) acc[m] = 0.f;
+    for (int k0 = 0; k0 < Tp; k0 += FIR_TAPS) {
+      // xv[i] = xs[base + i]; output j0+m, tap k0+u reads xv[m - u + 7]
+      const float4* xp = reinterpret_cast<const float4*>(
+          xs + j0 + Tp - 1 - k0 - (FIR_TAPS - 1));
+      const float4* tp = reinterpret_cast<const float4*>(taps + k0);
+      float xv[16], tv[FIR_TAPS];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 v = xp[q];
+        xv[4 * q] = v.x; xv[4 * q + 1] = v.y;
+        xv[4 * q + 2] = v.z; xv[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float4 v = tp[q];
+        tv[4 * q] = v.x; tv[4 * q + 1] = v.y;
+        tv[4 * q + 2] = v.z; tv[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int u = 0; u < FIR_TAPS; ++u)
+#pragma unroll
+        for (int m = 0; m < FIR_OUT; ++m)
+          acc[m] = fmaf(tv[u], xv[m - u + FIR_TAPS - 1], acc[m]);
+    }
+#pragma unroll
+    for (int m = 0; m < FIR_OUT; ++m)
+      span[j0 + m] = (s0 + j0 + m < S) ? acc[m] : 0.f;
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(TailShape<W>::THREADS)
+fused_tail_kernel(const float* __restrict__ wave, const int* __restrict__ idx,
+                  const float* __restrict__ tables,
+                  const float* __restrict__ taps, float* __restrict__ out,
+                  int B, long long S, int Fv, int T, int Tp, int noise_frames,
+                  float alpha, float gain_floor) {
+  using Sh = FftShape<W>;
+  using Ts = TailShape<W>;
+  constexpr int ALL = Ts::THREADS;
+  extern __shared__ float4 smem4[];
+  float* tab_s = reinterpret_cast<float*>(smem4);
+  float2* ring = reinterpret_cast<float2*>(tab_s + Sh::TABLE_FLOATS);
+  float2* buf_a = ring + 2 * Sh::BUF;
+  float2* buf_b = buf_a + Sh::BUF;   // with the high-pass, the FIR's output
+  float* taps_s = reinterpret_cast<float*>(buf_b + Sh::BUF);   // T > 0 only
+  const int halo = T > 0 ? Tp - 1 : 0;
+  const int stage_len = Ts::stage_floats(Tp);
+  float* stage = taps_s + Tp;        // two raw spans (+ halo), in flight
+
+  const int t = threadIdx.x;
+  const int r = blockIdx.x;
   const int src = idx[r];
-  float* out_r = out + static_cast<long long>(r) * Fv * K * 2;
+  float2* out_r = reinterpret_cast<float2*>(out) +
+                  static_cast<long long>(r) * Fv * Sh::K;
 
   if (src < 0 || src >= B) {  // pad slot: exact zeros, like a fill gather
-    const int ncols = min(DFT_COLS, 2 * (K - k0));
-    for (long long i = threadIdx.x; i < static_cast<long long>(Fv) * ncols;
-         i += blockDim.x) {
-      const long long f = i / ncols;
-      const int c = static_cast<int>(i % ncols);
-      out_r[f * 2 * K + 2 * k0 + c] = 0.f;
-    }
+    for (long long i = t; i < static_cast<long long>(Fv) * Sh::K; i += ALL)
+      out_r[i] = make_float2(0.f, 0.f);
     return;
   }
 
-  const float* xr = wave + static_cast<long long>(src) * S;
-  load_basis_tile(basis, window, K, k0, basis_s);
-  for (int k = threadIdx.x; k < T; k += blockDim.x) taps_s[k] = taps[k];
+  const int nf = min(noise_frames, Fv);
+  const int n_pre = nf > Sh::FRAMES ? (nf + Sh::FRAMES - 1) / Sh::FRAMES : 0;
+  const int n_chunks = n_pre + (Fv + Sh::FRAMES - 1) / Sh::FRAMES;
+  const float2* tw = reinterpret_cast<const float2*>(tab_s);
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int kk = threadIdx.x;  // the bin this thread carries, if any
-  const bool owns_bin = kk < DFT_BINS && k0 + kk < K;
-  float inv_lam = 0.f;
-  float a2 = 1.f;
-
-  for (int f0 = 0; f0 < Fv; f0 += DFT_FRAMES) {
-    const long long s0 = static_cast<long long>(f0) * hop;
-    if (T > 0) {
-      for (int j = threadIdx.x; j < span_len + T - 1; j += blockDim.x) {
-        const long long q = s0 - (T - 1) + j;
-        xs[j] = (q >= 0 && q < S) ? xr[q] : 0.f;
+  if (t < PRODUCERS) {
+    // ------------------------------------------------------------ producers
+    const float* xr = wave + static_cast<long long>(src) * S;
+    const auto psync = [] { bar_sync(BAR_PRODUCERS, PRODUCERS); };
+    const auto chunk_s0 = [&](int c) {
+      return static_cast<long long>(c < n_pre ? c : c - n_pre) *
+             Sh::FRAMES * Sh::N;
+    };
+    copy_span_async<PRODUCERS>(xr, S, chunk_s0(0) - halo, Sh::SPAN + halo,
+                               stage, t);
+    load_tables<W>(tables, tab_s, t, PRODUCERS);
+    for (int k = t; k < Tp; k += PRODUCERS) taps_s[k] = k < T ? taps[k] : 0.f;
+    for (int c = 0; c < n_chunks; ++c) {
+      // chunk c+1's samples travel while chunk c is filtered and transformed
+      if (c + 1 < n_chunks) {
+        copy_span_async<PRODUCERS>(xr, S, chunk_s0(c + 1) - halo,
+                                   Sh::SPAN + halo,
+                                   stage + ((c + 1) & 1) * stage_len, t);
+        asm volatile("cp.async.wait_group 1;" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
       }
-      __syncthreads();
-      for (int j = threadIdx.x; j < span_len; j += blockDim.x)
-        span[j] = (s0 + j < S) ? fir_point(xs, taps_s, T, j + T - 1) : 0.f;
-    } else {
-      for (int j = threadIdx.x; j < span_len; j += blockDim.x)
-        span[j] = (s0 + j < S) ? xr[s0 + j] : 0.f;
+      const int slot = c & 1;
+      if (c >= 2) bar_sync(BAR_EMPTY + slot, ALL);   // chunk c-2 consumed
+      psync();
+      const float* span = stage + (c & 1) * stage_len;
+      if (T > 0) {
+        fir_span<W>(span, taps_s, Tp, S, chunk_s0(c),
+                    reinterpret_cast<float*>(buf_b), t);
+        psync();
+        span = reinterpret_cast<const float*>(buf_b);
+      }
+      // the last pass writes the frames' complex FFTs into the slot
+      fft_frames<W, PRODUCERS>(span, tab_s, buf_a, buf_b,
+                               ring + slot * Sh::BUF, t, psync);
+      bar_arrive(BAR_FULL + slot, ALL);
     }
-    __syncthreads();
-
-    float acc[DFT_FRAMES_PER_WARP][2];
-    dft_tile(span, hop, window, basis_s, acc);
-#pragma unroll
-    for (int i = 0; i < DFT_FRAMES_PER_WARP; ++i) {
-      float* s = spec_s + (warp * DFT_FRAMES_PER_WARP + i) * DFT_COLS;
-      s[lane] = acc[i][0];
-      s[lane + 32] = acc[i][1];
-    }
-    __syncthreads();
-
-    // Only warp 0 reads spec_s from here on; the next chunk writes it after
-    // two more barriers, so no barrier is needed at the end of the loop.
-    if (owns_bin) {
-      if (f0 == 0) {
-        const int nf = min(noise_frames, Fv);
-        float sum = 0.f;
-        for (int f = 0; f < nf; ++f) {
-          const float re = spec_s[f * DFT_COLS + 2 * kk];
-          const float im = spec_s[f * DFT_COLS + 2 * kk + 1];
-          sum += re * re + im * im;
+  } else {
+    // ------------------------------------------------------------ consumers
+    const int kk = t - PRODUCERS;     // the bin this thread carries, if any
+    const bool owns_bin = kk < Sh::K;
+    float sum = 0.f, inv_lam = 0.f, a2 = 1.f;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int slot = c & 1;
+      const int f0 = (c < n_pre ? c : c - n_pre) * Sh::FRAMES;
+      bar_sync(BAR_FULL + slot, ALL);
+      const float2* Z = ring + slot * Sh::BUF;
+      if (owns_bin) {
+        if (c < n_pre || (n_pre == 0 && c == 0)) {   // noise frames
+          const int n_f = min(Sh::FRAMES, nf - f0);
+          for (int f = 0; f < n_f; ++f) {
+            const float2 v = rfft_bin<W>(Z + f * Sh::N, tw, kk);
+            sum += v.x * v.x + v.y * v.y;
+          }
+          if (c == max(n_pre - 1, 0)) inv_lam = 1.f / fmaxf(sum / nf, 1e-10f);
         }
-        inv_lam = 1.f / fmaxf(sum / nf, 1e-10f);
+        if (c >= n_pre) {
+          const int n_f = min(Sh::FRAMES, Fv - f0);
+          float2* o = out_r + static_cast<long long>(f0) * Sh::K + kk;
+#pragma unroll 4
+          for (int f = 0; f < n_f; ++f) {
+            const float2 v = rfft_bin<W>(Z + f * Sh::N, tw, kk);
+            const float g = fmaxf(
+                mmse_step(v.x * v.x + v.y * v.y, inv_lam, alpha, a2),
+                gain_floor);
+            o[static_cast<long long>(f) * Sh::K] = make_float2(v.x * g,
+                                                               v.y * g);
+          }
+        }
       }
-      const int n_f = min(DFT_FRAMES, Fv - f0);
-      for (int f = 0; f < n_f; ++f) {
-        const float re = spec_s[f * DFT_COLS + 2 * kk];
-        const float im = spec_s[f * DFT_COLS + 2 * kk + 1];
-        const float g = fmaxf(mmse_step(re * re + im * im, inv_lam, alpha, a2),
-                              gain_floor);
-        float* o = out_r + (static_cast<long long>(f0 + f) * K + k0 + kk) * 2;
-        o[0] = re * g;
-        o[1] = im * g;
-      }
+      if (c + 2 < n_chunks) bar_arrive(BAR_EMPTY + slot, ALL);
     }
   }
 }
 
-// wave: (B, S) f32; idx: (R,) int32; basis: (window, 2K) interleaved
-// (w*cos, -w*sin) per bin; taps: (T,) f32, or null with T = 0 for no
-// high-pass; out: (R, Fv, K, 2) f32. Contiguous, on the current device;
-// noise_frames must not exceed DFT_FRAMES. Returns a cudaError_t code.
-extern "C" int fused_tail_forward(const float* wave, const int* idx,
-                                  const float* basis, const float* taps,
-                                  float* out, int B, long long S, int R,
-                                  int Fv, int K, int window, int hop, int T,
-                                  int noise_frames, float alpha,
-                                  float gain_floor, void* stream) {
-  if (R <= 0 || Fv <= 0) return 0;
-  if (noise_frames < 1 || noise_frames > DFT_FRAMES)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int span_len = (DFT_FRAMES - 1) * hop + window;
-  size_t floats = window * DFT_COLS + span_len + DFT_FRAMES * DFT_COLS;
-  if (T > 0) floats += span_len + T - 1 + T;
+template <int W>
+static int launch_fused_tail(const float* wave, const int* idx,
+                             const float* tables, const float* taps,
+                             float* out, int B, long long S, int R, int Fv,
+                             int T, int noise_frames, float alpha,
+                             float gain_floor, cudaStream_t stream) {
+  using Sh = FftShape<W>;
+  using Ts = TailShape<W>;
+  const int Tp = T > 0 ? (T + FIR_TAPS - 1) / FIR_TAPS * FIR_TAPS : 0;
+  const size_t floats = Sh::TABLE_FLOATS + 8 * Sh::BUF + Tp +
+                        2 * Ts::stage_floats(Tp);
   const size_t smem = sizeof(float) * floats;
-  cudaError_t err = allow_shared_bytes(fused_tail_kernel, smem);
+  cudaError_t err = allow_shared_bytes(fused_tail_kernel<W>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((K + DFT_BINS - 1) / DFT_BINS),
-                  static_cast<unsigned>(R));
-  fused_tail_kernel<<<grid, DFT_THREADS, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      wave, idx, basis, taps, out, B, S, Fv, K, window, hop, T, noise_frames,
-      alpha, gain_floor);
+  fused_tail_kernel<W><<<R, Ts::THREADS, smem, stream>>>(
+      wave, idx, tables, taps, out, B, S, Fv, T, Tp, noise_frames, alpha,
+      gain_floor);
   return static_cast<int>(cudaGetLastError());
+}
+
+// wave: (B, S) f32; idx: (R,) int32; tables: fft_tables.tables(window);
+// taps: (T,) f32, or null with T = 0 for no high-pass; out: (R, Fv, K, 2)
+// f32, K = window/2 + 1. Contiguous, on the current device; hop = window/2,
+// window 128, 256 or 512, noise_frames >= 1. Returns a cudaError_t code.
+extern "C" int fused_tail_forward(const float* wave, const int* idx,
+                                  const float* tables, const float* taps,
+                                  float* out, int B, long long S, int R,
+                                  int Fv, int window, int T, int noise_frames,
+                                  float alpha, float gain_floor,
+                                  void* stream) {
+  if (R <= 0 || Fv <= 0) return 0;
+  if (noise_frames < 1 || T < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (window) {
+    case 128:
+      return launch_fused_tail<128>(wave, idx, tables, taps, out, B, S, R,
+                                    Fv, T, noise_frames, alpha, gain_floor,
+                                    s);
+    case 256:
+      return launch_fused_tail<256>(wave, idx, tables, taps, out, B, S, R,
+                                    Fv, T, noise_frames, alpha, gain_floor,
+                                    s);
+    case 512:
+      return launch_fused_tail<512>(wave, idx, tables, taps, out, B, S, R,
+                                    Fv, T, noise_frames, alpha, gain_floor,
+                                    s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,82 +1,92 @@
-// Short-time Fourier transform: frames of `window` samples every `hop`
-// samples, times the Hamming-windowed real-DFT basis, written as complex
-// (B, F, K) in (real, imaginary) pairs, F = (S - window) / hop + 1 and
-// K = window / 2 + 1.
+// Short-time Fourier transform: frames of W samples every hop = W/2
+// samples, Hamming-windowed, real FFT, written as complex (B, F, K) in
+// (real, imaginary) pairs, F = (S - W) / hop + 1 and K = W/2 + 1.
 //
 // Replaces: src/repro/kernels/stft_dft/kernel.py, stft_pallas (body
 // _stft_kernel, basis dft_basis). On the main path it is the detection
 // STFT: (16, 330,750) -> (16, 2582, 129).
 //
-// What bounds it on an H100: operations. 2*256*258 flops per frame against
-// 512 bytes of new input and 1,032 bytes of output: about 86 flops per
-// byte, well above the f32 CUDA-core ridge of about 20 (67 TFLOP/s over
-// 3.35 TB/s).
+// What bounds it on an H100: bytes. A real FFT needs about 2.5 W log2 W
+// flops per frame (5.4k at W = 256) against 512 bytes of new input and
+// 1,032 bytes of output: 3.5 flops per byte, under the f32 CUDA-core ridge
+// of about 20 (67 TFLOP/s over 3.35 TB/s). The TPU kernel's dense DFT (a
+// matmul with the windowed basis) needs 25 times the flops and is not the
+// algorithm for this card.
 //
-// Design: the grid is (frame tile of DFT_FRAMES, row, bin tile of
-// DFT_BINS). Frame f starts at sample f*hop, so a frame tile is one
-// contiguous span of (DFT_FRAMES-1)*hop + window samples, loaded once;
-// the even/odd reshapes and separate tail input of the TPU kernel existed
-// only because BlockSpecs cannot express overlapping blocks. The whole
-// (256, 258) windowed basis is 264 KB and does not fit the 227 KB a block
-// may use, so the bins are a grid axis and a block keeps only its
-// (256, 64) slice (64 KB). Shared memory per block: 99 KB, two blocks per
-// SM. The products are f32 FMAs on the CUDA cores (dft.cuh).
+// Design: the grid is (frame tile, row). A tile of FftShape<W>::FRAMES
+// consecutive frames (32 at W = 256) reads one contiguous span of
+// (FRAMES + 1) * hop samples (cp.async, 4 bytes a thread), and every frame
+// gets the shared-memory real FFT of fft.cuh (window applied as the frame
+// is read; twiddles and window from the host's f32 table). The tile's
+// output is one contiguous run of FRAMES * 2K floats: thread i writes the
+// i-th (re, im) pair, so a warp stores 256 consecutive bytes. Shared memory
+// per block: two 32 KB FFT buffers (the span lies in the second) and the
+// 3 KB table, so three blocks share an SM.
 #include "common.cuh"
-#include "dft.cuh"
+#include "fft.cuh"
 
-__global__ void __launch_bounds__(DFT_THREADS)
-stft_kernel(const float* __restrict__ x, const float* __restrict__ basis,
-            float* __restrict__ out, long long S, int F, int K, int window,
-            int hop) {
-  extern __shared__ float smem[];
-  float* basis_s = smem;
-  float* span = smem + window * DFT_COLS;
-  const int f0 = blockIdx.x * DFT_FRAMES;
+constexpr int STFT_THREADS = 256;
+
+template <int W>
+__global__ void __launch_bounds__(STFT_THREADS)
+stft_kernel(const float* __restrict__ x, const float* __restrict__ tables,
+            float* __restrict__ out, long long S, int F) {
+  using Sh = FftShape<W>;
+  extern __shared__ float4 smem4[];
+  float* tab_s = reinterpret_cast<float*>(smem4);
+  float2* buf_a = reinterpret_cast<float2*>(tab_s + Sh::TABLE_FLOATS);
+  float2* buf_b = buf_a + Sh::BUF;
+  const int t = threadIdx.x;
+  const int f0 = blockIdx.x * Sh::FRAMES;
   const int row = blockIdx.y;
-  const int k0 = blockIdx.z * DFT_BINS;
-  const int span_len = (DFT_FRAMES - 1) * hop + window;
-  const float* xr = x + row * S;
-  const long long s0 = static_cast<long long>(f0) * hop;
 
-  for (int j = threadIdx.x; j < span_len; j += blockDim.x)
-    span[j] = (s0 + j < S) ? xr[s0 + j] : 0.f;
-  load_basis_tile(basis, window, K, k0, basis_s);
+  copy_span_async<STFT_THREADS>(x + row * S, S,
+                                static_cast<long long>(f0) * Sh::N, Sh::SPAN,
+                                reinterpret_cast<float*>(buf_b), t);
+  load_tables<W>(tables, tab_s, t, STFT_THREADS);
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
   __syncthreads();
+  // the last pass writes the buffer the ping-pong reaches, not its input
+  float2* Z = Sh::PASSES % 2 ? buf_a : buf_b;
+  fft_frames<W, STFT_THREADS>(reinterpret_cast<const float*>(buf_b), tab_s,
+                              buf_a, buf_b, Z, t, [] { __syncthreads(); });
 
-  float acc[DFT_FRAMES_PER_WARP][2];
-  dft_tile(span, hop, window, basis_s, acc);
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < DFT_FRAMES_PER_WARP; ++i) {
-    const int f = f0 + warp * DFT_FRAMES_PER_WARP + i;
-    if (f >= F) break;
-    float* o = out + (static_cast<long long>(row) * F + f) * (2 * K);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = 2 * k0 + lane + 32 * j;
-      if (c < 2 * K) o[c] = acc[i][j];
-    }
+  const float2* tw = reinterpret_cast<const float2*>(tab_s);
+  const int n_out = min(Sh::FRAMES, F - f0) * Sh::K;
+  float2* o = reinterpret_cast<float2*>(out) +
+              (static_cast<long long>(row) * F + f0) * Sh::K;
+  for (int i = t; i < n_out; i += STFT_THREADS) {
+    const int f = i / Sh::K, k = i % Sh::K;
+    o[i] = rfft_bin<W>(Z + f * Sh::N, tw, k);
   }
 }
 
-// x: (B, S); basis: (window, 2K) interleaved (w*cos, -w*sin) per bin;
-// out: (B, F, K, 2). All f32, contiguous, on the current device. Returns
-// a cudaError_t code.
-extern "C" int stft_forward(const float* x, const float* basis, float* out,
-                            int B, long long S, int F, int K, int window,
-                            int hop, void* stream) {
-  if (B <= 0 || F <= 0) return 0;
-  const size_t smem = sizeof(float) * (window * DFT_COLS +
-                                       (DFT_FRAMES - 1) * hop + window);
-  cudaError_t err = allow_shared_bytes(stft_kernel, smem);
+template <int W>
+static int launch_stft(const float* x, const float* tables, float* out, int B,
+                       long long S, int F, cudaStream_t stream) {
+  using Sh = FftShape<W>;
+  const size_t smem = sizeof(float) * (Sh::TABLE_FLOATS + 4 * Sh::BUF);
+  cudaError_t err = allow_shared_bytes(stft_kernel<W>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((F + DFT_FRAMES - 1) / DFT_FRAMES),
-                  static_cast<unsigned>(B),
-                  static_cast<unsigned>((K + DFT_BINS - 1) / DFT_BINS));
-  stft_kernel<<<grid, DFT_THREADS, smem,
-                static_cast<cudaStream_t>(stream)>>>(x, basis, out, S, F,
-                                                     K, window, hop);
+  const dim3 grid(static_cast<unsigned>((F + Sh::FRAMES - 1) / Sh::FRAMES),
+                  static_cast<unsigned>(B));
+  stft_kernel<W><<<grid, STFT_THREADS, smem, stream>>>(x, tables, out, S, F);
   return static_cast<int>(cudaGetLastError());
+}
+
+// x: (B, S); tables: fft_tables.tables(window), (3 * window,); out:
+// (B, F, window/2 + 1, 2). All f32, contiguous, on the current device;
+// hop = window / 2 and window is 128, 256 or 512. Returns a cudaError_t
+// code.
+extern "C" int stft_forward(const float* x, const float* tables, float* out,
+                            int B, long long S, int F, int window,
+                            void* stream) {
+  if (B <= 0 || F <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (window) {
+    case 128: return launch_stft<128>(x, tables, out, B, S, F, s);
+    case 256: return launch_stft<256>(x, tables, out, B, S, F, s);
+    case 512: return launch_stft<512>(x, tables, out, B, S, F, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

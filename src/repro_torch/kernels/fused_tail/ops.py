@@ -15,16 +15,15 @@ from repro_torch.kernels._build import CudaKernel, require_cuda
 from repro_torch.kernels.fir_hpf import ref as FR
 from repro_torch.kernels.fir_hpf.ops import taps_on
 from repro_torch.kernels.fused_tail import ref as R
+from repro_torch.kernels.stft_dft import fft_tables as FT
 from repro_torch.kernels.stft_dft import ref as SR
-from repro_torch.kernels.stft_dft.ops import basis_on
+from repro_torch.kernels.stft_dft.ops import tables_on
 
 KERNEL = CudaKernel("fused_tail", "fused_tail_forward", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_float, ctypes.c_float])
-
-MAX_NOISE_FRAMES = 64   # the kernel's frame chunk (DFT_FRAMES in dft.cuh)
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_float])
 
 
 def fused_tail_spectrum_cuda(wave, idx, cfg, hpf=False):
@@ -32,17 +31,17 @@ def fused_tail_spectrum_cuda(wave, idx, cfg, hpf=False):
     device -> gain-filtered spectrum, complex64 (R, Fv, K)."""
     wave = wave.float().contiguous()
     window, hop = cfg.stft_window, cfg.stft_hop
-    basis = basis_on(wave.device, window)
-    dev = require_cuda(wave, basis)
+    FT.check_geometry(window, hop)
+    tables = tables_on(wave.device, window)
+    dev = require_cuda(wave, tables)
     idx = idx.contiguous()
     require_cuda(idx, dtype=torch.int32)
     B, S = wave.shape
     rows = idx.shape[0]
     K = window // 2 + 1
     Fv = SR.num_frames(S, window, hop)
-    if not 1 <= cfg.noise_est_frames <= MAX_NOISE_FRAMES:
-        raise ValueError(f"noise_est_frames must be in [1, "
-                         f"{MAX_NOISE_FRAMES}] for the fused kernel")
+    if cfg.noise_est_frames < 1:
+        raise ValueError("noise_est_frames must be at least 1")
     if idx.device != dev or Fv < 1 or rows > 65535:
         raise ValueError(f"fused_tail_spectrum_cuda: unsupported wave "
                          f"{tuple(wave.shape)} / idx {tuple(idx.shape)} on "
@@ -53,9 +52,9 @@ def fused_tail_spectrum_cuda(wave, idx, cfg, hpf=False):
                        (cfg.hpf_cutoff_hz, cfg.target_rate_hz, cfg.hpf_taps))
         T = taps.shape[0]
     out = torch.empty((rows, Fv, K, 2), dtype=torch.float32, device=dev)
-    KERNEL(dev, wave.data_ptr(), idx.data_ptr(), basis.data_ptr(),
+    KERNEL(dev, wave.data_ptr(), idx.data_ptr(), tables.data_ptr(),
            None if taps is None else taps.data_ptr(), out.data_ptr(), B, S,
-           rows, Fv, K, window, hop, T, cfg.noise_est_frames,
+           rows, Fv, window, T, cfg.noise_est_frames,
            float(cfg.mmse_alpha), float(cfg.mmse_gain_floor))
     return torch.view_as_complex(out)
 

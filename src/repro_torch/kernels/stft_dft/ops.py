@@ -2,7 +2,9 @@
 
 Dispatch goes by the tensor's device: a CPU tensor runs `ref.stft_ref`
 (`torch.fft.rfft`), a CUDA tensor launches `csrc/stft.cu`. The kernel
-reads overlapping frames straight from the row, so it needs no padding.
+reads overlapping frames straight from the row, so it needs no padding;
+it takes hop = window/2 with a window of 128, 256 or 512 samples and
+raises `ValueError` on anything else.
 """
 from __future__ import annotations
 
@@ -12,34 +14,36 @@ import functools
 import torch
 
 from repro_torch.kernels._build import CudaKernel, require_cuda
+from repro_torch.kernels.stft_dft import fft_tables as FT
 from repro_torch.kernels.stft_dft import ref as R
 
 KERNEL = CudaKernel("stft", "stft_forward", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int])
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int])
 
 
 @functools.lru_cache(maxsize=16)
-def basis_on(device, window):
-    """The interleaved windowed DFT basis (window, 2K) on `device`."""
-    return torch.as_tensor(R.interleaved_basis(window), device=device)
+def tables_on(device, window):
+    """The FFT kernels' twiddle and window table (`fft_tables.tables`) on
+    `device`."""
+    return torch.as_tensor(FT.tables(window), device=device)
 
 
 def stft_cuda(x, window=256, hop=128):
     """The hand kernel: x (B, S) f32 CUDA -> complex64 (B, F, K),
     F = (S - window) // hop + 1."""
+    FT.check_geometry(window, hop)
     x = x.float().contiguous()
-    basis = basis_on(x.device, window)
-    dev = require_cuda(x, basis)
+    tables = tables_on(x.device, window)
+    dev = require_cuda(x, tables)
     B, S = x.shape
     K = window // 2 + 1
     F = R.num_frames(S, window, hop)
     if not 1 <= B <= 65535 or F < 1:
         raise ValueError(f"stft_cuda: unsupported B={B}, S={S}")
     out = torch.empty((B, F, K, 2), dtype=torch.float32, device=dev)
-    KERNEL(dev, x.data_ptr(), basis.data_ptr(), out.data_ptr(), B, S, F, K,
-           window, hop)
+    KERNEL(dev, x.data_ptr(), tables.data_ptr(), out.data_ptr(), B, S, F,
+           window)
     return torch.view_as_complex(out)
 
 

@@ -1,9 +1,9 @@
 """Constants and the plain PyTorch versions of the STFT kernel
 (framing + Hamming window + real DFT) and of the inverse STFT.
 
-`stft_ref` uses `torch.fft.rfft`, a different computation from the
-kernel's DFT sums, so comparing the two is a real cross-check. The window
-and the DFT basis are built in numpy exactly as the reference builds them.
+`stft_ref` uses `torch.fft.rfft`, not the kernel's own FFT passes, so
+comparing the two is a real cross-check. The window is built in numpy
+exactly as the reference builds it.
 """
 from __future__ import annotations
 
@@ -12,8 +12,6 @@ import functools
 import numpy as np
 import torch
 
-PAD_OUT = 384   # the reference basis width: 2*(128+1) = 258 padded to 3*128
-
 
 def hamming(n):
     return 0.54 - 0.46 * np.cos(2.0 * np.pi * np.arange(n) / (n - 1))
@@ -21,33 +19,6 @@ def hamming(n):
 
 def num_frames(n_samples, window, hop):
     return (n_samples - window) // hop + 1
-
-
-def dft_basis(window=256, windowed=True):
-    """Packed real-DFT basis (window, PAD_OUT) f32 numpy: [cos | -sin | 0],
-    the reference's layout. With windowed=True the Hamming window is folded
-    into the rows."""
-    bins = window // 2 + 1
-    n = np.arange(window)[:, None]
-    k = np.arange(bins)[None, :]
-    ang = 2.0 * np.pi * n * k / window
-    basis = np.zeros((window, PAD_OUT), np.float32)
-    basis[:, :bins] = np.cos(ang)
-    basis[:, bins:2 * bins] = -np.sin(ang)
-    if windowed:
-        basis *= hamming(window)[:, None]
-    return basis
-
-
-def interleaved_basis(window=256):
-    """`dft_basis` re-laid for the CUDA kernels: (window, 2*bins) with
-    column 2k = w*cos and 2k+1 = -w*sin of bin k, so a kernel writes each
-    bin's (real, imaginary) pair next to each other."""
-    bins = window // 2 + 1
-    b = dft_basis(window)
-    return np.ascontiguousarray(
-        np.stack([b[:, :bins], b[:, bins:2 * bins]], axis=-1)
-        .reshape(window, 2 * bins))
 
 
 def frame(x, window, hop):

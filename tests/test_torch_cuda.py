@@ -9,6 +9,8 @@ machine with an H100 and the CUDA toolkit:
 No JAX: the machine with the card need not have it. Small shapes here;
 `chip_smoke.py` repeats the comparison at the main path's shapes.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -60,6 +62,27 @@ def test_stft_kernel(card, S):
     _close(got, SR.stft_ref(x), 2e-4, 2e-4)
 
 
+@pytest.mark.parametrize("window", [128, 256, 512])
+@pytest.mark.parametrize("B,extra", [(1, -1), (1, 1), (3, -1), (3, 1)])
+def test_stft_kernel_tile_edges(card, window, B, extra):
+    """Frame counts one below and one above two frame tiles (8192/window
+    frames each), one row and three, every window the kernel takes."""
+    hop = window // 2
+    F = 2 * (8192 // window) + extra
+    S = (F - 1) * hop + window + hop // 2    # a part frame left over
+    x = torch.randn(B, S, device=card)
+    got = SO.stft_cuda(x, window, hop)
+    assert got.shape == (B, F, hop + 1)
+    _close(got, SR.stft_ref(x, window, hop), 2e-4, 2e-4)
+
+
+def test_stft_kernel_unaligned_rows(card):
+    """Rows whose start is not 16-byte aligned (S odd, a view at offset 1)."""
+    base = torch.randn(2 * 9_001 + 1, device=card)
+    x = base[1:].view(2, 9_001)
+    _close(SO.stft_cuda(x), SR.stft_ref(x), 2e-4, 2e-4)
+
+
 @pytest.mark.parametrize("B,F,K", [(1, 32, 128), (2, 64, 129), (1, 16, 256)])
 def test_mmse_kernel(card, B, F, K):
     rng = np.random.RandomState(B + F + K)
@@ -82,6 +105,39 @@ def test_fused_tail_kernel(card, hpf, S):
     _close(TO.fused_tail(wave, idx, cfg, hpf), TR.fused_tail_ref(wave, idx, cfg,
                                                                  hpf),
            2e-4, 2e-4)
+
+
+@pytest.mark.parametrize("hpf", [False, True])
+@pytest.mark.parametrize("noise_frames", [1, 100, 400])
+def test_fused_tail_kernel_noise_frames(card, hpf, noise_frames):
+    """Any noise_est_frames: one frame, more than a chunk, more than Fv."""
+    S = 40_000                                   # Fv = 311
+    tcfg = dataclasses.replace(cfg, noise_est_frames=noise_frames)
+    wave = torch.randn(4, S, device=card) * 0.3
+    idx = torch.tensor([3, 0, 4, 1], dtype=torch.int32, device=card)
+    got = TO.fused_tail_spectrum_cuda(wave, idx, tcfg, hpf)
+    _close(got, TR.fused_tail_spectrum_ref(wave, idx, tcfg, hpf), 2e-4, 2e-4)
+    assert not torch.view_as_real(got[2]).any()
+
+
+@pytest.mark.parametrize("idx", [[2], [5], [5, -1, 9]])
+def test_fused_tail_kernel_one_row_and_all_pads(card, idx):
+    wave = torch.randn(5, 20_000, device=card) * 0.3
+    idx = torch.tensor(idx, dtype=torch.int32, device=card)
+    got = TO.fused_tail_spectrum_cuda(wave, idx, cfg)
+    _close(got, TR.fused_tail_spectrum_ref(wave, idx, cfg), 2e-4, 2e-4)
+
+
+@pytest.mark.parametrize("window,hop", [(256, 64), (256, 256), (200, 100),
+                                        (384, 192), (1024, 512)])
+def test_fft_wrappers_reject_other_framing(card, window, hop):
+    x = torch.randn(2, 5_000, device=card)
+    with pytest.raises(ValueError):
+        SO.stft_cuda(x, window, hop)
+    tcfg = dataclasses.replace(cfg, stft_window=window, stft_hop=hop)
+    with pytest.raises(ValueError):
+        TO.fused_tail_spectrum_cuda(
+            x, torch.tensor([0], dtype=torch.int32, device=card), tcfg)
 
 
 def test_wrappers_dispatch_cuda_tensors_to_kernels(card):

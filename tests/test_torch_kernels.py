@@ -27,6 +27,7 @@ from repro_torch.kernels.fir_hpf import ref as FR  # noqa: E402
 from repro_torch.kernels.fused_tail import ops as TO  # noqa: E402
 from repro_torch.kernels.mmse_stsa import ops as MO  # noqa: E402
 from repro_torch.kernels.mmse_stsa import ref as MR  # noqa: E402
+from repro_torch.kernels.stft_dft import fft_tables as FT  # noqa: E402
 from repro_torch.kernels.stft_dft import ops as SO  # noqa: E402
 from repro_torch.kernels.stft_dft import ref as SR  # noqa: E402
 
@@ -114,20 +115,42 @@ def test_fused_tail_matches_reference(hpf, n_tiles):
     assert not got[3].any()                        # pad row exactly zero
 
 
+@pytest.mark.parametrize("hpf", [False, True])
+def test_fused_tail_many_noise_frames_matches_reference(hpf):
+    """noise_est_frames = 100, more than one chunk of the CUDA kernel's
+    frames: the port's fused tail (plain version) against the reference's
+    oracle."""
+    import dataclasses
+    rng = np.random.RandomState(40 + hpf)
+    S = 2 * 16_384 + 256                     # Fv = 257 frames
+    wave = (rng.randn(4, S) * 0.3).astype(np.float32)
+    idx = np.asarray([2, 0, 4], np.int32)
+    jcfg = dataclasses.replace(JCFG, noise_est_frames=100)
+    tcfg = dataclasses.replace(cfg, noise_est_frames=100)
+    want = np.asarray(JTR.fused_tail_ref(jnp.asarray(wave), jnp.asarray(idx),
+                                         jcfg, hpf=hpf))
+    got = TO.fused_tail(torch.from_numpy(wave), torch.from_numpy(idx), tcfg,
+                        hpf=hpf).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    assert not got[2].any()                        # pad row exactly zero
+
+
 # -------------------------------------------------------------- constants
 def test_constants_equal_reference():
-    """Taps, window and DFT basis are the reference's numpy constants, bit
-    for bit."""
+    """Taps and window are the reference's numpy constants, bit for bit;
+    the FFT kernels' host-built table holds exp(-2 pi i k / N) and the
+    reference's window to f32 precision."""
     for n_taps in (33, 65, 129):
         np.testing.assert_array_equal(
             FR.highpass_taps(1000.0, 22_050, n_taps),
             JFR.highpass_taps(1000.0, 22_050, n_taps))
     np.testing.assert_array_equal(SR.hamming(256), JSR.hamming(256))
-    basis = SR.dft_basis(256)
-    np.testing.assert_array_equal(basis, np.asarray(JSK.dft_basis(256)))
-    inter = SR.interleaved_basis(256)
-    np.testing.assert_array_equal(inter[:, 0::2], basis[:, :129])
-    np.testing.assert_array_equal(inter[:, 1::2], basis[:, 129:258])
+    tab = FT.tables(256)
+    tw = tab[0:512:2] + 1j * tab[1:512:2]
+    np.testing.assert_allclose(tw, np.exp(-2j * np.pi * np.arange(256) / 256),
+                               rtol=0, atol=1e-7)
+    np.testing.assert_allclose(tab[512:], JSR.hamming(256), rtol=0,
+                               atol=1e-7)
 
 
 def test_fir_ops_match_reference_stages():
