@@ -14,6 +14,7 @@ outside a checkout of the repo. Phases, any failure exits non-zero:
      median kernel time (CUDA events, L2 flushed before each run), the plain
      version's time, one library call's time where PyTorch has one, and the
      least time the card could take for the same work (`bound_ms`). The
+     FIR also at the staged tail's stride-1 high-pass shape; the
      fused tail also at all 48 rows, with the high-pass, and with
      noise_est_frames = 100; `chain_ms` is the MMSE kernel on one chain of
      860 frames, the recurrence's latency floor.
@@ -178,27 +179,45 @@ def kernel_checks(torch, np, timer, peak_flops):
                   f"(max |err| {err:.3g}, rtol {rtol}, atol {atol})")
         results[name] = rec
 
-    # FIR: the compress stage, (4, 2,646,000) -> (4, 1,323,000), 129 taps
-    B, S, stride = 4, 2_646_000, 2
-    x = torch.randn((B, S), generator=gen, device="cuda") * 0.3
-    taps_np = fir_ref.bandpass_decimate_taps(1000.0, 11_025.0, 44_100, 129)
-    taps = torch.as_tensor(taps_np, device="cuda")
-    T = taps.shape[0]
-    got = fir_ops.fir_cuda(x, taps, stride)
-    want = fir_ref.fir_ref(x, taps_np, stride)
-    torch.cuda.synchronize()
-    err, ok = compare(torch, got, want, *TOL["fir_hpf"])
-    xp = F.pad(x[:, None, :], (T - 1, 0))
-    w = taps.flip(0)[None, None, :]
-    out_len = S // stride
-    record("fir_hpf", f"x ({B}, {S}) -> ({B}, {out_len}), T={T}, s={stride}",
-           err, ok,
-           timer(lambda: fir_ops.fir_cuda(x, taps, stride)),
-           timer(lambda: fir_ref.fir_ref(x, taps_np, stride)),
-           timer(lambda: F.conv1d(xp, w, stride=stride)),
-           4 * (B * S + B * out_len + T), fir_flops(B * S, B * out_len, T),
-           library_call="torch.nn.functional.conv1d (cuDNN, TF32 off)")
-    del x, xp, got, want
+    def fir_case(B, S, stride, taps_np):
+        """The FIR kernel at one shape against `fir_ref`, with its times,
+        `conv1d`'s and its bound."""
+        x = torch.randn((B, S), generator=gen, device="cuda") * 0.3
+        T = taps_np.shape[0]
+        got = fir_ops.fir_cuda(x, taps_np, stride)
+        want = fir_ref.fir_ref(x, taps_np, stride)
+        torch.cuda.synchronize()
+        err, ok = compare(torch, got, want, *TOL["fir_hpf"])
+        xp = F.pad(x[:, None, :], (T - 1, 0))
+        w = torch.as_tensor(taps_np, device="cuda").flip(0)[None, None, :]
+        out_len = S // stride
+        n_bytes = 4 * (B * S + B * out_len + T)
+        n_flops = fir_flops(B * S, B * out_len, T)
+        b_ms, b_by = bound(n_bytes, n_flops, peak_flops)
+        return dict(
+            shape=f"x ({B}, {S}) -> ({B}, {out_len}), T={T}, s={stride}",
+            err=err, ok=ok,
+            ms=timer(lambda: fir_ops.fir_cuda(x, taps_np, stride)),
+            plain_ms=timer(lambda: fir_ref.fir_ref(x, taps_np, stride)),
+            library_ms=timer(lambda: F.conv1d(xp, w, stride=stride)),
+            n_bytes=n_bytes, n_flops=n_flops, bound_ms=b_ms, bound_by=b_by)
+
+    # FIR: the compress stage, (4, 2,646,000) -> (4, 1,323,000), 129 taps,
+    # and the staged tail's hpf stage, (48, 110,250) at stride 1
+    s1 = fir_case(48, 110_250, 1, fir_ref.highpass_taps(
+        cfg.hpf_cutoff_hz, cfg.target_rate_hz, cfg.hpf_taps))
+    check(s1["ok"], f"fir_hpf (stride 1): kernel disagrees with its plain "
+                    f"version (max |err| {s1['err']:.3g})")
+    c = fir_case(4, 2_646_000, 2, fir_ref.bandpass_decimate_taps(
+        1000.0, 11_025.0, 44_100, 129))
+    record("fir_hpf", c["shape"], c["err"], c["ok"], c["ms"], c["plain_ms"],
+           c["library_ms"], c["n_bytes"], c["n_flops"],
+           library_call="torch.nn.functional.conv1d (cuDNN, TF32 off)",
+           stride1={"shape": s1["shape"], "max_abs_err": s1["err"],
+                    "ms": s1["ms"], "plain_ms": s1["plain_ms"],
+                    "library_ms": s1["library_ms"],
+                    "bound_ms": s1["bound_ms"], "bound_by": s1["bound_by"],
+                    "bytes": s1["n_bytes"], "flops": s1["n_flops"]})
 
     # STFT: the detection STFT, (16, 330,750) -> (16, 2582, 129)
     B, S, W, H = 16, 330_750, cfg.stft_window, cfg.stft_hop

@@ -42,15 +42,23 @@ def _close(got, want, rtol, atol):
     torch.testing.assert_close(got.cpu(), want.cpu(), rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("stride,S,taps", [(1, 5000, 129), (2, 10_000, 129),
-                                           (2, 8193, 65), (3, 9001, 33)])
-def test_fir_kernel(card, stride, S, taps):
+@pytest.mark.parametrize("B,stride,S,taps", [
+    (2, 1, 5000, 129), (2, 2, 10_000, 129), (2, 2, 8193, 65),
+    (2, 3, 9001, 33),
+    (2, 2, 5001, 1),                 # one tap
+    (2, 1, 9001, 600), (3, 2, 20_001, 600),   # taps in shared memory
+    (2, 2, 100, 129), (2, 1, 57, 129),        # S < T
+    (48, 1, 110_250, 129),           # the staged tail's hpf stage
+    (4, 2, 2_646_000, 129)])         # the main path's compress stage
+def test_fir_kernel(card, B, stride, S, taps):
     rng = np.random.RandomState(stride * S % 97)
-    x = torch.as_tensor(rng.randn(2, S).astype(np.float32), device=card)
-    h = FR.bandpass_decimate_taps(1000.0, 11_025.0, 44_100, taps)
+    x = torch.as_tensor(rng.randn(B, S).astype(np.float32), device=card)
+    h = (FR.bandpass_decimate_taps(1000.0, 11_025.0, 44_100, taps)
+         if taps > 1 else np.array([0.7], np.float32))
     before = FO.KERNEL.launches
-    got = FO.fir_cuda(x, torch.as_tensor(h, device=card), stride)
+    got = FO.fir_cuda(x, h, stride)
     assert FO.KERNEL.launches == before + 1
+    assert got.shape == (B, S // stride)
     _close(got, FR.fir_ref(x, h, stride), 1e-4, 1e-5)
 
 
@@ -155,7 +163,10 @@ def test_wrappers_dispatch_cuda_tensors_to_kernels(card):
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError):
         FO.fir_cuda(torch.randn(2, 100, device=card),
-                    torch.ones(5, dtype=torch.float64, device=card))
+                    torch.ones(5, dtype=torch.float64))
+    with pytest.raises(ValueError):                     # taps on the card
+        FO.fir_cuda(torch.randn(2, 100, device=card),
+                    torch.ones(5, device=card))
     with pytest.raises(ValueError):
         SO.stft_cuda(torch.randn(2, 1000))              # a CPU tensor
     with pytest.raises(ValueError):
