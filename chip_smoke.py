@@ -16,8 +16,11 @@ outside a checkout of the repo. Phases, any failure exits non-zero:
      least time the card could take for the same work (`bound_ms`). The
      FIR also at the staged tail's stride-1 high-pass shape; the
      fused tail also at all 48 rows, with the high-pass, and with
-     noise_est_frames = 100; `chain_ms` is the MMSE kernel on one chain of
-     860 frames, the recurrence's latency floor.
+     noise_est_frames = 100; the MMSE kernel also at 35 rows, the main
+     path's largest survivor batch; `chain_ms` is the MMSE kernel on one
+     chain of 860 frames: this implementation's floor for a recurrence of
+     860 steps, measured in the run beside `bound_ms` (not a bound of the
+     function).
   3. main path: `Preprocessor(SERF_AUDIO, plan="two_phase")` on the card
      over 3 batches of `audio_batch_maker(seed=25, batch_long_chunks=4)`
      (12 minutes of stereo 44.1 kHz audio), with the fused tail and with
@@ -246,28 +249,51 @@ def kernel_checks(torch, np, timer, peak_flops):
     rec["kernel_over_library"] = rec["ms"] / rec["library_ms"]
     del x, got, want, lib
 
-    # MMSE gain: the staged survivor tail, power (16, 860, 129)
-    R, Fv = 16, 860
-    rng = np.random.RandomState(5)
-    p = rng.exponential(1.0, (R, Fv, K)).astype(np.float32)
-    p[:, Fv // 4:Fv // 2, :K // 3] += 40.0       # a loud region
-    power = torch.as_tensor(p, device="cuda")
-    noise = mmse_ref.estimate_noise_psd(power, cfg.noise_est_frames)
+    # MMSE gain: the staged survivor tail, power (16, 860, 129), and
+    # (35, 860, 129), the main path's largest survivor batch
+    Fv = 860
     args = (cfg.mmse_alpha, cfg.mmse_gain_floor)
-    got = mmse_ops.mmse_gain_cuda(power, noise, *args)
-    want = mmse_ref.mmse_stsa_gain_ref(power, noise, *args)
-    torch.cuda.synchronize()
-    err, ok = compare(torch, got, want, *TOL["mmse_stsa"])
-    # the recurrence's latency floor: one chain of Fv dependent steps
-    p1, n1 = power[:1, :, :1].contiguous(), noise[:1, :1].contiguous()
+
+    def mmse_case(R, time_plain):
+        rng = np.random.RandomState(5 if R == 16 else R)
+        p = rng.exponential(1.0, (R, Fv, K)).astype(np.float32)
+        p[:, Fv // 4:Fv // 2, :K // 3] += 40.0       # a loud region
+        power = torch.as_tensor(p, device="cuda")
+        noise = mmse_ref.estimate_noise_psd(power, cfg.noise_est_frames)
+        got = mmse_ops.mmse_gain_cuda(power, noise, *args)
+        want = mmse_ref.mmse_stsa_gain_ref(power, noise, *args)
+        torch.cuda.synchronize()
+        err, ok = compare(torch, got, want, *TOL["mmse_stsa"])
+        n_bytes = 4 * (2 * R * Fv * K + R * K)
+        n_flops = MMSE_OPS_PER_STEP * R * Fv * K
+        b_ms, b_by = bound(n_bytes, n_flops, peak_flops)
+        return dict(
+            power=power, noise=noise, err=err, ok=ok,
+            shape=f"power ({R}, {Fv}, {K}), noise ({R}, {K})",
+            ms=timer(lambda: mmse_ops.mmse_gain_cuda(power, noise, *args)),
+            plain_ms=(timer(lambda: mmse_ref.mmse_stsa_gain_ref(
+                power, noise, *args), reps=3, warmup=1) if time_plain
+                else None),
+            n_bytes=n_bytes, n_flops=n_flops, bound_ms=b_ms, bound_by=b_by)
+
+    m35 = mmse_case(35, time_plain=False)
+    check(m35["ok"], f"mmse_stsa (35 rows): kernel disagrees with its plain "
+                     f"version (max |err| {m35['err']:.3g})")
+    m = mmse_case(16, time_plain=True)
+    # one chain of Fv dependent steps: this implementation's floor for the
+    # recurrence, measured here; not a bound of the function
+    p1 = m["power"][:1, :, :1].contiguous()
+    n1 = m["noise"][:1, :1].contiguous()
     chain_ms = timer(lambda: mmse_ops.mmse_gain_cuda(p1, n1, *args))
-    record("mmse_stsa", f"power ({R}, {Fv}, {K}), noise ({R}, {K})", err, ok,
-           timer(lambda: mmse_ops.mmse_gain_cuda(power, noise, *args)),
-           timer(lambda: mmse_ref.mmse_stsa_gain_ref(power, noise, *args),
-                 reps=3, warmup=1),
-           None, 4 * (2 * R * Fv * K + R * K), MMSE_OPS_PER_STEP * R * Fv * K,
-           chain_ms=chain_ms, chain_shape=f"(1, {Fv}, 1)")
-    del power, noise, got, want
+    record("mmse_stsa", m["shape"], m["err"], m["ok"], m["ms"],
+           m["plain_ms"], None, m["n_bytes"], m["n_flops"],
+           chain_ms=chain_ms, chain_shape=f"(1, {Fv}, 1)",
+           ms_over_chain=m["ms"] / chain_ms,
+           rows35={"shape": m35["shape"], "max_abs_err": m35["err"],
+                   "ms": m35["ms"], "ms_over_chain": m35["ms"] / chain_ms,
+                   "bound_ms": m35["bound_ms"], "bound_by": m35["bound_by"],
+                   "bytes": m35["n_bytes"], "flops": m35["n_flops"]})
+    del m, m35, p1, n1
 
     # fused tail: wave (48, 110,250), 16 indices with one pad slot, and all
     # 48 rows; with and without the high-pass; noise_est_frames = 100
@@ -338,6 +364,7 @@ def kernel_checks(torch, np, timer, peak_flops):
            f"({len(idx16)}, {Fv}, {K}) complex", v["err"], v["ok"], v["ms"],
            v["plain_ms"], None, v["n_bytes"], v["n_flops"],
            cleaned_max_abs_err=v["wave_err"], chain_ms=chain_ms,
+           ms_over_chain=v["ms"] / chain_ms,
            **{label: extra(c) for label, c in cases.items()})
     return results
 

@@ -26,7 +26,7 @@
 //     last pass writing into one of two ring slots in shared memory.
 //   - Consumer warps (one thread per bin) read their bin's pair Z[k],
 //     Z[N-k] of every frame from the slot, do the real FFT's even/odd split
-//     (off the chain), carry A^2/lambda in a register through mmse_step
+//     (off the chain), carry alpha A^2/lambda in registers through mmse_step
 //     (mmse.cuh, shared with the staged kernel) and write re*g, im*g, a
 //     warp's stores consecutive in memory.
 //   - The roles hand slots over with named barriers (bar.arrive by the
@@ -197,7 +197,8 @@ fused_tail_kernel(const float* __restrict__ wave, const int* __restrict__ idx,
     // ------------------------------------------------------------ consumers
     const int kk = t - PRODUCERS;     // the bin this thread carries, if any
     const bool owns_bin = kk < Sh::K;
-    float sum = 0.f, inv_lam = 0.f, a2 = 1.f;
+    float sum = 0.f, inv_lam = 0.f;
+    MmseCarry a2 = mmse_carry_init(alpha);
     for (int c = 0; c < n_chunks; ++c) {
       const int slot = c & 1;
       const int f0 = (c < n_pre ? c : c - n_pre) * Sh::FRAMES;

@@ -91,12 +91,29 @@ def test_stft_kernel_unaligned_rows(card):
     _close(SO.stft_cuda(x), SR.stft_ref(x), 2e-4, 2e-4)
 
 
-@pytest.mark.parametrize("B,F,K", [(1, 32, 128), (2, 64, 129), (1, 16, 256)])
+@pytest.mark.parametrize("B,F,K", [
+    (1, 32, 128), (2, 64, 129), (1, 16, 256),
+    *[(35, F, K) for F in (1, 3, 861) for K in (1, 129)]])
 def test_mmse_kernel(card, B, F, K):
     rng = np.random.RandomState(B + F + K)
     p = rng.exponential(1.0, (B, F, K)).astype(np.float32)
     p[:, F // 4:F // 2, :K // 3] += 40.0
     power = torch.as_tensor(p, device=card)
+    noise = MR.estimate_noise_psd(power, 8)
+    _close(MO.mmse_gain_cuda(power, noise), MR.mmse_stsa_gain_ref(power, noise),
+           1e-4, 2e-5)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_mmse_kernel_unaligned_power(card, offset):
+    """A power view at an odd float offset: contiguous, not 16-byte
+    aligned; the kernel's 4-byte head copies take the lead-in floats."""
+    B, F, K = 3, 70, 129
+    rng = np.random.RandomState(offset)
+    flat = torch.as_tensor(rng.exponential(1.0, B * F * K + offset)
+                           .astype(np.float32), device=card)
+    power = flat[offset:].view(B, F, K)
+    assert power.data_ptr() % 16 != 0 and power.is_contiguous()
     noise = MR.estimate_noise_psd(power, 8)
     _close(MO.mmse_gain_cuda(power, noise), MR.mmse_stsa_gain_ref(power, noise),
            1e-4, 2e-5)
