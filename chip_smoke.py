@@ -21,13 +21,24 @@ outside a checkout of the repo. Phases, any failure exits non-zero:
      chain of 860 frames: this implementation's floor for a recurrence of
      860 steps, measured in the run beside `bound_ms` (not a bound of the
      function).
-  3. main path: `Preprocessor(SERF_AUDIO, plan="two_phase")` on the card
-     over 3 batches of `audio_batch_maker(seed=25, batch_long_chunks=4)`
-     (12 minutes of stereo 44.1 kHz audio), with the fused tail and with
-     `fuse_tail=False`; every kernel's launch count must rise; batch 0
-     must match the port's own CPU run (equal masks, cleaned audio within
-     2e-4); MB/s of source audio (median of 5 timed passes per tail, the
-     two tails in turns) and the chunks kept; one profiled pass each.
+  3. main path: four cells (`CELLS`) of `Preprocessor(SERF_AUDIO, ...)` on
+     the card over 3 batches of `audio_batch_maker(seed=25,
+     batch_long_chunks=4)` (12 minutes of stereo 44.1 kHz audio):
+     `two_phase` with the fused tail and with `fuse_tail=False`, and the
+     asynchronous `async` (depth 2) and `streaming` plans with the fused
+     tail. Each is warmed up over one batch, then driven once with the
+     launch counts set to 0 just before and read just after: every kernel
+     of its path must have launched. The two_phase cells' batch 0 must
+     match the port's own CPU run (equal masks, cleaned audio within
+     2e-4); the staged cell the fused one within 2e-4; the async and
+     streaming cells the fused two_phase cell bitwise, with at least one
+     dispatch that overlapped another batch, and the async cell's
+     profiled pass must copy no batch from pageable memory. Printed: MB/s
+     of source audio (median, min and max of 5 timed passes per cell, the
+     cells in turns), the chunks kept, the host staging and DMA ms of each
+     upload of the asynchronous cells, and one profiled pass per cell
+     (device time by kernel, copies by kind; its trace goes to
+     `build/chip_smoke/`).
   4. one JSON line with every kernel's numbers, then the result line
      `{"ok": true, "device": {...}}` last.
 
@@ -398,11 +409,31 @@ def mask_margins(torch, graph, audio):
     return out
 
 
-def device_profile(torch, pre, batches):
+def memcpy_summary(trace_path):
+    """Per kind of copy in a Chrome trace of the profiler ("Memcpy HtoD
+    (Pageable -> Device)", ...): count, device ms, total and largest
+    bytes."""
+    events = json.loads(Path(trace_path).read_text())["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") != "gpu_memcpy":
+            continue
+        rec = out.setdefault(e["name"], {"count": 0, "ms": 0.0, "bytes": 0,
+                                         "max_bytes": 0})
+        n = int(e["args"]["bytes"])
+        rec["count"] += 1
+        rec["ms"] += e["dur"] / 1e3
+        rec["bytes"] += n
+        rec["max_bytes"] = max(rec["max_bytes"], n)
+    return out
+
+
+def device_profile(torch, pre, batches, trace_path):
     """Device time by kernel over one pass of the main path under
-    `torch.profiler`, and the share of that pass's wall time the device was
-    busy. The profiler slows the host side, so the share is a lower bound
-    of the unprofiled run's."""
+    `torch.profiler`, the share of that pass's wall time the device was
+    busy, and the copies by kind (`memcpy_summary` of the pass's trace,
+    written to `trace_path`). The profiler slows the host side, so the
+    share is a lower bound of the unprofiled run's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -422,13 +453,36 @@ def device_profile(torch, pre, batches):
             us = e.self_cuda_time_total
         if us > 0:
             by_name[e.key] = (us / 1e3, e.count)
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace_path))
+    copies = memcpy_summary(trace_path)
     if not by_name:
-        return {"device_busy_ms": "not measured", "wall_ms": wall_ms}
+        return {"device_busy_ms": "not measured", "wall_ms": wall_ms,
+                "copies": copies}
     busy = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "device_busy_share": busy / wall_ms,
+            "device_busy_share": busy / wall_ms, "copies": copies,
             "top": [[k[:80], ms, n] for k, (ms, n) in top]}
+
+
+# cell -> (plan, plan arguments); the first is the one the others are held
+# against bitwise (same fused tail), the two two_phase cells are also held
+# against the port's CPU run
+CELLS = {"serf_two_phase_fused": ("two_phase", {}),
+         "serf_two_phase_staged": ("two_phase", {"fuse_tail": False}),
+         "serf_async_fused": ("async", {}),
+         "serf_streaming_fused": ("streaming", {})}
+# kernels a cell's main-path run must launch (the fused path's by default)
+NEED = {"serf_two_phase_staged": ("fir_hpf", "stft_dft", "mmse_stsa")}
+
+
+def pageable_uploads(copies, batch_bytes):
+    """The kinds of pageable host-to-device copy in `copies` that moved a
+    whole batch at once."""
+    return [name for name, rec in copies.items()
+            if "HtoD" in name and "Pageable" in name
+            and rec["max_bytes"] >= batch_bytes]
 
 
 def main_path(torch, np, card):
@@ -440,27 +494,51 @@ def main_path(torch, np, card):
     make = audio_batch_maker(seed=25, batch_long_chunks=4)
     batches = [(w, make(w)) for w in range(3)]     # set-up, not timed
     src = sum(c.nbytes for _, (c, _) in batches)
-    cells = {"fused": Preprocessor(SERF_AUDIO, plan="two_phase"),
-             "staged": Preprocessor(SERF_AUDIO, plan="two_phase",
-                                    fuse_tail=False)}
-    results, launch_counts = {}, {}
+    batch_bytes = batches[0][1][0].nbytes
+    cells = {label: Preprocessor(SERF_AUDIO, plan=plan, **kw)
+             for label, (plan, kw) in CELLS.items()}
+    results, launch_counts, uploads, in_flight = {}, {}, {}, {}
     for label, pre in cells.items():
         check(pre.device.type == "cuda", "Preprocessor did not pick the card")
-        pre(batches[0][1][0])           # warm-up: cuFFT plans, allocator
+        # warm-up over one batch: cuFFT plans, the allocators, the staging
+        # ring's cudaHostAlloc
+        list(pre.run(batches[:1]))
         torch.cuda.synchronize()
+        staging = pre.plan.staging
+        if staging is not None:
+            staging.log.clear()
         kernels.reset_launches()
-        results[label] = list(pre.run(batches))    # the main-path run
+        run = list(pre.run(batches))               # the main-path run
         torch.cuda.synchronize()
         launch_counts[label] = kernels.launches()
-    # timed passes, the cells in turns (fused, staged, staged, fused, ...)
-    # so that neither always runs first
+        # the asynchronous plans hand out `cleaned` as views of pinned
+        # buffers; keep copies, so that the timed passes find those
+        # buffers free in the caching host allocator as a consumer that
+        # drops its results leaves them (no cudaHostAlloc in a pass)
+        results[label] = [dataclasses.replace(r, cleaned=r.cleaned.copy())
+                          for r in run]
+        del run
+        if staging is not None:
+            in_flight[label] = [t["in_flight"]
+                                for t in pre.plan.last_timings]
+            uploads[label] = [{"staging_ms": a, "dma_ms": b}
+                              for a, b in staging.upload_times()]
+    # timed passes, the cells in turns, the order reversed every other
+    # pass so that no cell always runs first; and the host staging ms the
+    # asynchronous cells spent in each pass
     pass_times = {label: [] for label in cells}
+    pass_staging = {label: [] for label in uploads}
     for rep in range(PASSES):
         for label in (list(cells) if rep % 2 == 0 else list(cells)[::-1]):
+            staging = cells[label].plan.staging
+            logged = len(staging.log) if staging is not None else 0
             t0 = time.perf_counter()
             list(cells[label].run(batches))
             torch.cuda.synchronize()
             pass_times[label].append(time.perf_counter() - t0)
+            if staging is not None:
+                pass_staging[label].append(1e3 * sum(
+                    e[0] for e in list(staging.log)[logged:]))
 
     runs = {}
     for label, pre in cells.items():
@@ -486,41 +564,67 @@ def main_path(torch, np, card):
                   and np.isfinite(r.cleaned).all(),
                   f"{label}: cleaned batch {r.wid} is malformed")
         med = statistics.median(mb_per_s)
-        rec = {"main_path": label, "launches": counts, "passes": PASSES,
-               "pass_s": pass_s, "mb_per_s_median": med,
+        profile = device_profile(
+            torch, pre, batches,
+            ROOT / "build" / "chip_smoke" / f"trace_{label}.json")
+        rec = {"main_path": label, "plan": pre.plan.name,
+               "fuse_tail": pre.plan.fuse_tail, "launches": counts,
+               "passes": PASSES, "pass_s": pass_s, "mb_per_s_median": med,
                "mb_per_s_min": mb_per_s[0], "mb_per_s_max": mb_per_s[-1],
                "src_mb": src / 2**20, "kept": kept, "chunks": chunks,
                "detect_ms": detect_ms, "tail_ms": tail_ms,
-               "timings": [r.timings for r in res],
-               "profile": device_profile(torch, pre, batches)}
+               "timings": [r.timings for r in res], "profile": profile}
+        if label in uploads:
+            rec.update(depth=pre.plan.depth, in_flight=in_flight[label],
+                       uploads=uploads[label],
+                       pass_staging_ms=pass_staging[label])
         runs[label] = dict(rec, res=res)
-        print(f"plan=two_phase tail={label} card={card}  "
+        print(f"plan={pre.plan.name} cell={label} card={card}  "
               f"{src / 2**20:.0f} MB source audio per pass, median of "
-              f"{PASSES} passes  ->  {med:.2f} MB/s", flush=True)
-        print(f"chunks kept {kept}/{chunks} (tail={label})", flush=True)
+              f"{PASSES} passes  ->  {med:.2f} MB/s "
+              f"({mb_per_s[0]:.2f}-{mb_per_s[-1]:.2f})", flush=True)
+        print(f"chunks kept {kept}/{chunks} ({label})", flush=True)
+        for i, u in enumerate(uploads.get(label, ())):
+            print(f"{label} upload of batch {i}: host staging "
+                  f"{u['staging_ms']:.3f} ms, DMA {u['dma_ms']:.3f} ms",
+                  flush=True)
         print(json.dumps(rec), flush=True)
 
-    need = {"fused": ("fir_hpf", "stft_dft", "fused_tail"),
-            "staged": ("fir_hpf", "stft_dft", "mmse_stsa")}
-    for label, names in need.items():
-        for n in names:
-            check(runs[label]["launches"][n] > 0,
-                  f"main path ({label} tail) never launched kernel {n}")
+    for label, r in runs.items():
+        for n in NEED.get(label, ("fir_hpf", "stft_dft", "fused_tail")):
+            check(r["launches"][n] > 0,
+                  f"main path ({label}) never launched kernel {n}")
+    for label in in_flight:
+        check(max(in_flight[label]) >= 2,
+              f"{label}: no dispatch overlapped another batch "
+              f"(in_flight {in_flight[label]})")
+    bad = pageable_uploads(runs["serf_async_fused"]["profile"]["copies"],
+                           batch_bytes)
+    check(not bad, f"serf_async_fused: the profiled pass copied a batch "
+                   f"from pageable memory ({bad})")
 
-    fused, staged = runs["fused"]["res"], runs["staged"]["res"]
-    for a, b in zip(fused, staged):
-        check(bool((a.det.keep == b.det.keep).all()),
-              "fused and staged runs disagree on the keep mask")
-        check(a.cleaned.shape == b.cleaned.shape and np.allclose(
-            a.cleaned, b.cleaned, rtol=2e-4, atol=2e-4),
-            "fused and staged tails disagree beyond 2e-4")
+    base = runs["serf_two_phase_fused"]["res"]
+    for label in ("serf_two_phase_staged", "serf_async_fused",
+                  "serf_streaming_fused"):
+        bitwise = label != "serf_two_phase_staged"
+        for a, b in zip(base, runs[label]["res"]):
+            check(a.wid == b.wid, f"{label}: batches out of order")
+            for m in ("keep", "rain", "silence", "cicada15"):
+                check(bool((getattr(a.det, m) == getattr(b.det, m)).all()),
+                      f"{label}: the {m} mask differs from two_phase's")
+            check(a.cleaned.shape == b.cleaned.shape and (
+                np.array_equal(a.cleaned, b.cleaned) if bitwise
+                else np.allclose(a.cleaned, b.cleaned, rtol=2e-4,
+                                 atol=2e-4)),
+                f"{label}: cleaned audio differs from two_phase's fused "
+                f"tail" + (" (bitwise)" if bitwise else " beyond 2e-4"))
 
     # batch 0 against the port's own CPU run on the same numpy input
     chunks0 = batches[0][1][0]
     cpu_pre = Preprocessor(SERF_AUDIO, plan="two_phase", device="cpu")
     cpu = cpu_pre(chunks0)
     report = {}
-    for label in ("fused", "staged"):
+    for label in ("serf_two_phase_fused", "serf_two_phase_staged"):
         gpu = runs[label]["res"][0]
         flips = {}
         for m in ("keep", "rain", "silence", "cicada15"):

@@ -1,9 +1,27 @@
 """Execution plans: how a validated `PipelineGraph` runs on a batch stream.
 
-This slice ports `TwoPhasePlan`, the single-stream default: detection ->
-the host reads back the keep mask -> a padded survivor-index vector ->
-the survivor tail on the device, which gathers the survivors out of the
-still-resident batch. MMSE cost scales with surviving audio.
+Three plans of the reference are ported:
+
+  * `TwoPhasePlan`  -- detection -> the host reads back the keep mask -> a
+                       padded survivor-index vector -> the survivor tail on
+                       the device, which gathers the survivors out of the
+                       still-resident batch. MMSE cost scales with
+                       surviving audio. One batch at a time, with
+                       synchronous copies: the single-stream default.
+  * `AsyncPlan`     -- the deep pipeline: a window of `depth` detection
+                       batches enqueued ahead, each keep mask read back
+                       without blocking as soon as its detection is
+                       enqueued, power-of-two survivor buckets, reuse of
+                       the plan's device input buffers (donation), and one
+                       finished tail held back so that its cleaned rows
+                       come back while the next batch computes. On the card
+                       its copies go through `core.transfer.Staging`:
+                       pinned host buffers, a copy stream one batch ahead.
+  * `StreamingPlan` -- `AsyncPlan` at depth 1, linear padding, no donation
+                       and no held-back tail.
+
+Emission is always input order, each batch exactly once. Per-batch
+`BatchResult.timings` keep the reference's keys.
 
 When the graph's post-removal chain is the canonical fused tail, `("mmse",)`
 or `("hpf", "mmse")`, the survivor phase runs the fused tail kernel
@@ -12,14 +30,13 @@ or `("hpf", "mmse")`, the survivor phase runs the fused tail kernel
 False forces the staged per-stage path, True demands fusion and raises on
 a non-canonical tail.
 
-The port runs eagerly: no compile cache and no buffer donation. It runs on
-one device, so the survivor batch is padded to no multiple (the reference's
-`pad_multiple` is its device count) and with linear buckets, as the
-reference's two_phase plan pads. The other plans of the reference (fused,
-streaming, async, sharded, cached) are later slices.
+The port runs eagerly: no compile cache. Bucketing (`bucket`, `pad_multiple`)
+still decides the tail's row count, as in the reference. The reference's
+other plans (fused, sharded, cached) are later slices.
 """
 from __future__ import annotations
 
+import collections
 import time
 from dataclasses import dataclass, field, replace
 
@@ -27,9 +44,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import scheduler as SCHED
+from repro_torch.core import transfer
 from repro_torch.core.graph import (GraphValidationError, PipelineGraph,
                                     PipelineOutput)
 from repro_torch.device import resolve_device
+
+# Cap on the per-batch timing dicts `AsyncPlan.last_timings` keeps.
+TIMINGS_CAP = 4096
 
 
 @dataclass
@@ -43,11 +64,16 @@ class BatchResult:
     src_bytes: int = 0              # input bytes (throughput accounting)
     timings: dict = field(default=None, repr=False)
     # per-batch instrumentation, the reference's keys:
-    #   readback_s  blocking keep-mask readback (waits for detection)
+    #   dispatch_s  upload + detection enqueue (async plans; not compute)
+    #   in_flight   detection batches in the window when this one entered
+    #   readback_s  blocking part of the keep-mask readback
     #   compact_s   host index bookkeeping
-    #   tail_s      tail enqueue
-    #   emit_s      blocking cleaned readback (waits for the tail)
-    #   d2h_bytes / h2d_bytes   host-boundary traffic this batch caused
+    #   tail_s      tail enqueue + start of the cleaned readback
+    #   emit_s      blocking part of the cleaned readback at emission
+    #   d2h_bytes / h2d_bytes   host-boundary traffic this batch caused:
+    #               the keep mask and the n_real cleaned rows down, the
+    #               int32 index vector up (the batch upload is not counted,
+    #               as in the reference)
     #   tail_rows / n_real      padded tail batch rows vs real survivors
     #   wave5_bytes, old_boundary_bytes   the full pre-denoise batch and
     #               what a host-side compaction round trip would have moved
@@ -69,16 +95,55 @@ def _iter_batches(batches):
         yield wid, chunks, extra
 
 
+@dataclass
+class _Detected:
+    """A batch whose detection is enqueued and whose keep mask is on its
+    way to the host."""
+    det: PipelineOutput
+    keep: transfer.Readback
+    wid: object
+    extra: object
+    src_bytes: int
+    timings: dict
+
+
+@dataclass
+class _PendingTail:
+    """A batch whose tail is enqueued but not yet read back: everything
+    `_emit` needs, held while the device works and the cleaned rows stream
+    host-ward."""
+    det: PipelineOutput
+    cleaned: object                 # Readback of the n_real rows (None: 0)
+    n_real: int
+    wid: object
+    extra: object
+    src_bytes: int
+    timings: dict
+
+
 class TwoPhasePlan:
+    """`pad_multiple` and `bucket` set the survivor tail's row count
+    (`scheduler.quantize_survivors`). `donate` lets the asynchronous plans
+    write a later batch into the device input buffer of an earlier one once
+    its detection is enqueued (None: on for CUDA); two_phase copies each
+    batch synchronously into a fresh tensor, so there it only records the
+    choice, as the reference's signature has it."""
     name = "two_phase"
 
-    def __init__(self, graph: PipelineGraph, fuse_tail=None, device=None):
+    def __init__(self, graph: PipelineGraph, pad_multiple=1, bucket="linear",
+                 donate=False, fuse_tail=None, device=None):
         if not graph.has_removal_point:
             raise GraphValidationError(
                 f"plan '{self.name}' needs a 'removal_point' stage in the "
                 f"graph (stages: {graph.names})")
         self.graph = graph
         self.device = resolve_device(device)
+        self.pad_multiple = max(1, int(pad_multiple))
+        self.bucket = bucket
+        SCHED.quantize_survivors(0, 1, 1, bucket)     # validate the mode
+        if donate is None:
+            donate = self.device.type == "cuda"
+        self.donate = bool(donate)
         spec = graph.fused_tail_spec
         if fuse_tail is None:
             fuse_tail = spec is not None
@@ -88,80 +153,213 @@ class TwoPhasePlan:
                 f"{graph.names[graph._cut():]} are not the canonical "
                 f"[hpf ->] mmse fused tail")
         self.fuse_tail = bool(fuse_tail)
+        self.staging = None             # synchronous copies
 
     def _to_device(self, audio):
-        return torch.as_tensor(np.asarray(audio, np.float32)).to(self.device)
+        return torch.as_tensor(audio, dtype=torch.float32, device=self.device)
+
+    def _readback(self, t) -> transfer.Readback:
+        return (transfer.Readback(t) if self.staging is None
+                else self.staging.readback(t))
 
     def detect(self, audio) -> PipelineOutput:
         return self.graph.detection(self._to_device(audio))
 
-    def _finish(self, det: PipelineOutput, src_bytes=0) -> BatchResult:
+    def _dispatch(self, audio, wid=None, extra=None):
+        """Bring a batch to the device, enqueue its detection and start the
+        keep-mask readback. A batch already on the device (the caller's
+        tensor) is used where it is; a host batch goes through the staging
+        ring when the plan has one (`slot`: the plan's device buffer it was
+        copied into, when the plan donates)."""
+        if self.staging is None or (torch.is_tensor(audio)
+                                    and audio.device.type != "cpu"):
+            x, slot = self._to_device(audio), None
+        else:
+            x, slot = self.staging.upload(audio)
+        det = self.graph.detection(x)
+        if slot is not None:
+            if det.wave5.untyped_storage().data_ptr() == \
+                    x.untyped_storage().data_ptr():
+                # a graph whose wave5 is a view of its input: keep it out
+                # of the slot that a later batch writes
+                det = replace(det, wave5=det.wave5.clone())
+            self.staging.release(slot)
+        return _Detected(det, self._readback(det.keep), wid, extra,
+                         x.numel() * x.element_size(), {})
+
+    def _start_tail(self, d: _Detected) -> _PendingTail:
+        """Master bookkeeping, device-resident: the host reads back only
+        the keep mask, builds a padded survivor-index vector, and the tail
+        gathers + denoises on the device; its n_real real rows start back
+        to the host at once."""
         t0 = time.perf_counter()
-        keep = det.keep.cpu().numpy()                 # the only readback
+        keep = d.keep.wait()                          # the only readback
         t1 = time.perf_counter()
-        idx, n_real = SCHED.survivor_indices(keep, 1, "linear")
+        idx, n_real = SCHED.survivor_indices(keep, self.pad_multiple,
+                                             self.bucket)
         t2 = time.perf_counter()
-        out, h2d = None, 0
+        cleaned, h2d = None, 0
         if n_real:
-            idx_t = torch.from_numpy(idx).to(self.device)
-            tail = (self.graph.tail_indexed_fused if self.fuse_tail
+            idx_t = torch.from_numpy(idx)
+            if self.device.type == "cuda":      # no wait on the stream
+                idx_t = idx_t.pin_memory().to(self.device, non_blocking=True)
+            tail =(self.graph.tail_indexed_fused if self.fuse_tail
                     else self.graph.tail_indexed)
-            out = tail(det.wave5, idx_t)
+            cleaned = self._readback(tail(d.det.wave5, idx_t)[:n_real])
             h2d = idx.nbytes
         t3 = time.perf_counter()
-        wave5 = det.wave5
-        timings = dict(
+        wave5 = d.det.wave5
+        timings = dict(d.timings)
+        timings.update(
             readback_s=t1 - t0, compact_s=t2 - t1, tail_s=t3 - t2,
             h2d_bytes=h2d, d2h_bytes=keep.nbytes,
             tail_rows=0 if idx is None else len(idx), n_real=n_real,
             wave5_bytes=wave5.numel() * wave5.element_size())
-        if out is None:
-            cleaned = np.zeros((0, wave5.shape[-1]), np.float32)
+        return _PendingTail(d.det, cleaned, n_real, d.wid, d.extra,
+                            d.src_bytes, timings)
+
+    def _emit(self, pend: _PendingTail) -> BatchResult:
+        """Wait for (the rest of) the cleaned readback and build the
+        result. Only the real rows come back; pad rows are zero rows of
+        the device tail and never reach `cleaned`."""
+        t0 = time.perf_counter()
+        if pend.cleaned is None:
+            cleaned = np.zeros((0, pend.det.wave5.shape[-1]), np.float32)
         else:
-            cleaned = out[:n_real].cpu().numpy()
-            timings["d2h_bytes"] += cleaned.nbytes
-        timings["emit_s"] = time.perf_counter() - t3
+            cleaned = pend.cleaned.wait()
+            pend.timings["d2h_bytes"] += cleaned.nbytes
+        pend.timings["emit_s"] = time.perf_counter() - t0
         # what the reference's host-side compaction round trip would have
-        # moved: the full wave5 and mask down, survivors up, cleaned down
-        timings["old_boundary_bytes"] = (
-            timings["wave5_bytes"] + keep.size + 2 * cleaned.nbytes)
-        return BatchResult(cleaned=cleaned, det=det, n_kept=n_real,
-                           src_bytes=src_bytes, timings=timings)
+        # moved for this batch: the full wave5 and mask down, the
+        # linear-padded survivor batch up and the same padded rows down
+        cap = pend.det.keep.numel()
+        lin_rows = SCHED.quantize_survivors(
+            pend.n_real, cap, self.pad_multiple, "linear") \
+            if pend.n_real else 0
+        row_bytes = cleaned.shape[-1] * cleaned.dtype.itemsize
+        pend.timings["old_boundary_bytes"] = (
+            pend.timings["wave5_bytes"] + cap + 2 * lin_rows * row_bytes)
+        return BatchResult(cleaned=cleaned, det=pend.det,
+                           n_kept=pend.n_real, wid=pend.wid,
+                           labels=pend.extra, src_bytes=pend.src_bytes,
+                           timings=pend.timings)
+
+    def _finish(self, det: PipelineOutput, src_bytes=0) -> BatchResult:
+        return self._emit(self._start_tail(_Detected(
+            det, self._readback(det.keep), None, None, src_bytes, {})))
 
     def __call__(self, audio) -> BatchResult:
-        x = self._to_device(audio)
-        return self._finish(self.graph.detection(x),
-                            src_bytes=x.numel() * x.element_size())
+        return self._emit(self._start_tail(self._dispatch(audio)))
 
     def run(self, batches):
         for wid, chunks, extra in _iter_batches(batches):
             yield replace(self(chunks), wid=wid, labels=extra)
 
 
-PLANS = {p.name: p for p in (TwoPhasePlan,)}
+class AsyncPlan(TwoPhasePlan):
+    """Depth-K asynchronous streaming executor: a bounded window of `depth`
+    detection batches enqueued ahead, each keep mask read back without
+    blocking the moment its detection is enqueued, the tail gathering
+    survivors on the device, and `emit_buffer` finished tails held back so
+    that their cleaned rows come back while the next batch computes.
+    Defaults to power-of-two survivor buckets and, on the card, to reuse
+    of the plan's device input buffers. Emission is strictly input order;
+    `last_timings` keeps the per-batch records of the most recent run().
+
+    On the card the copies go through `transfer.Staging` with `depth + 1`
+    slots. Unlike the reference, which moves the padded tail batch to the
+    host, the port copies back only the n_real survivor rows and counts
+    those bytes in `d2h_bytes`."""
+    name = "async"
+
+    def __init__(self, graph, pad_multiple=1, depth=2, bucket="pow2",
+                 donate=None, emit_buffer=1, fuse_tail=None, device=None):
+        super().__init__(graph, pad_multiple, bucket=bucket, donate=donate,
+                         fuse_tail=fuse_tail, device=device)
+        self.depth = max(1, int(depth))
+        # dispatched tails retained before emission: 1 double-buffers the
+        # cleaned readback behind the next batch; 0 emits each result the
+        # moment its tail is dispatched
+        self.emit_buffer = max(0, int(emit_buffer))
+        self.last_timings = collections.deque(maxlen=TIMINGS_CAP)
+        if self.device.type == "cuda":
+            self.staging = transfer.Staging(self.device, self.depth + 1,
+                                            self.donate)
+
+    def run(self, batches):
+        self.last_timings = collections.deque(maxlen=TIMINGS_CAP)
+        dets = collections.deque()       # detection window (<= depth)
+        tails = collections.deque()      # dispatched tails
+
+        def start_oldest_tail():
+            tails.append(self._start_tail(dets.popleft()))
+
+        def emit_oldest():
+            res = self._emit(tails.popleft())
+            self.last_timings.append(res.timings)
+            return res
+
+        for wid, chunks, extra in _iter_batches(batches):
+            t0 = time.perf_counter()
+            in_flight = len(dets) + 1
+            d = self._dispatch(chunks, wid, extra)
+            d.timings.update(dispatch_s=time.perf_counter() - t0,
+                             in_flight=in_flight)
+            dets.append(d)
+            if len(dets) > self.depth:
+                start_oldest_tail()
+            while len(tails) > self.emit_buffer:
+                yield emit_oldest()
+        while dets:
+            start_oldest_tail()
+            while len(tails) > self.emit_buffer:
+                yield emit_oldest()
+        while tails:
+            yield emit_oldest()
+
+
+class StreamingPlan(AsyncPlan):
+    """Two-phase with one batch of dispatch-ahead: detection of batch k+1
+    is already enqueued while the host does batch k's mask readback,
+    compaction, tail dispatch and emission. Depth 1, linear tail padding,
+    no donation, no emission hold-back: `async` with the dials turned
+    down."""
+    name = "streaming"
+
+    def __init__(self, graph, pad_multiple=1, depth=1, bucket="linear",
+                 donate=False, emit_buffer=0, fuse_tail=None, device=None):
+        super().__init__(graph, pad_multiple, depth=depth, bucket=bucket,
+                         donate=donate, emit_buffer=emit_buffer,
+                         fuse_tail=fuse_tail, device=device)
+
+
+PLANS = {p.name: p for p in (TwoPhasePlan, StreamingPlan, AsyncPlan)}
 
 
 class Preprocessor:
     """The facade every entry point uses.
 
-        pre = Preprocessor(SERF_AUDIO, plan="two_phase")      # on the card
+        pre = Preprocessor(SERF_AUDIO, plan="async")          # on the card
         pre = Preprocessor(SERF_AUDIO, device="cpu")          # plain versions
         for res in pre.run(stream):
             use(res.cleaned, res.det.stats, res.n_kept)
 
     `plan` is a name from `PLANS` or a plan class; `stages` overrides the
-    config-declared stage list (ablations, or the `("hpf", "mmse")` tail).
-    Extra keyword arguments go to the plan (e.g. `fuse_tail=False`).
+    config-declared stage list (ablations, or the `("hpf", "mmse")` tail);
+    `source_channels` is the input's channel count (2: stereo); the plan
+    pads the survivor tail to a multiple of `pad_multiple`. Extra keyword
+    arguments go to the plan (e.g. `depth=4`, `fuse_tail=False`).
     `device=None` means the CUDA card and raises when there is none.
     """
 
-    def __init__(self, cfg, plan="two_phase", stages=None, device=None,
-                 **plan_kwargs):
+    def __init__(self, cfg, plan="two_phase", pad_multiple=1, stages=None,
+                 source_channels=2, device=None, **plan_kwargs):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.graph = PipelineGraph(cfg, stages)
+        self.graph = PipelineGraph(cfg, stages, source_channels)
         plan_cls = PLANS[plan] if isinstance(plan, str) else plan
-        self.plan = plan_cls(self.graph, device=self.device, **plan_kwargs)
+        self.plan = plan_cls(self.graph, pad_multiple, device=self.device,
+                             **plan_kwargs)
 
     def __call__(self, audio) -> BatchResult:
         """One batch of (B, C, S_long_src) long chunks -> BatchResult."""

@@ -33,6 +33,8 @@ SOURCES = ("fir", "stft", "mmse", "fused_tail")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+MAX_GRID_Y = 65535      # CUDA's limit on gridDim.y (and z)
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -50,8 +50,8 @@ def fir_cuda(x, taps, stride=1):
         taps = taps.numpy()
     h = np.asarray(taps)
     B, S = x.shape
-    if h.dtype != np.float32 or h.ndim != 1 or not 1 <= B <= 65535 \
-            or stride < 1 or h.shape[0] < 1:
+    if h.dtype != np.float32 or h.ndim != 1 or B < 1 or stride < 1 \
+            or h.shape[0] < 1:
         raise ValueError(f"fir_cuda: unsupported B={B}, stride={stride}, "
                          f"taps {h.dtype} {h.shape}")
     lay, table = _tap_table(h.tobytes(), stride)

@@ -42,7 +42,7 @@ def fused_tail_spectrum_cuda(wave, idx, cfg, hpf=False):
     Fv = SR.num_frames(S, window, hop)
     if cfg.noise_est_frames < 1:
         raise ValueError("noise_est_frames must be at least 1")
-    if idx.device != dev or Fv < 1 or rows > 65535:
+    if idx.device != dev or Fv < 1:
         raise ValueError(f"fused_tail_spectrum_cuda: unsupported wave "
                          f"{tuple(wave.shape)} / idx {tuple(idx.shape)} on "
                          f"{idx.device}")

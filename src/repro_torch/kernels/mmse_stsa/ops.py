@@ -9,7 +9,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, require_cuda
+from repro_torch.kernels._build import MAX_GRID_Y, CudaKernel, require_cuda
 from repro_torch.kernels.mmse_stsa import ref as R
 
 KERNEL = CudaKernel("mmse", "mmse_forward", [
@@ -24,12 +24,15 @@ def mmse_gain_cuda(power, noise_psd, alpha=0.98, gain_floor=0.1):
     noise = noise_psd.float().contiguous()
     dev = require_cuda(power, noise)
     B, F, K = power.shape
-    if noise.shape != (B, K) or not 1 <= B <= 65535:
+    if noise.shape != (B, K) or B < 1:
         raise ValueError(f"mmse_gain_cuda: power {tuple(power.shape)} and "
                          f"noise {tuple(noise.shape)} do not match")
     gains = torch.empty_like(power)
-    KERNEL(dev, power.data_ptr(), noise.data_ptr(), gains.data_ptr(), B, F,
-           K, float(alpha), float(gain_floor))
+    # rows go on the grid's y axis: one launch per block of MAX_GRID_Y rows
+    for b0 in range(0, B, MAX_GRID_Y):
+        KERNEL(dev, power[b0].data_ptr(), noise[b0].data_ptr(),
+               gains[b0].data_ptr(), min(MAX_GRID_Y, B - b0), F, K,
+               float(alpha), float(gain_floor))
     return gains
 
 

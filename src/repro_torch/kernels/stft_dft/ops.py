@@ -13,7 +13,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, require_cuda
+from repro_torch.kernels._build import MAX_GRID_Y, CudaKernel, require_cuda
 from repro_torch.kernels.stft_dft import fft_tables as FT
 from repro_torch.kernels.stft_dft import ref as R
 
@@ -39,11 +39,13 @@ def stft_cuda(x, window=256, hop=128):
     B, S = x.shape
     K = window // 2 + 1
     F = R.num_frames(S, window, hop)
-    if not 1 <= B <= 65535 or F < 1:
+    if B < 1 or F < 1:
         raise ValueError(f"stft_cuda: unsupported B={B}, S={S}")
     out = torch.empty((B, F, K, 2), dtype=torch.float32, device=dev)
-    KERNEL(dev, x.data_ptr(), tables.data_ptr(), out.data_ptr(), B, S, F,
-           window)
+    # rows go on the grid's y axis: one launch per block of MAX_GRID_Y rows
+    for r0 in range(0, B, MAX_GRID_Y):
+        KERNEL(dev, x[r0].data_ptr(), tables.data_ptr(), out[r0].data_ptr(),
+               min(MAX_GRID_Y, B - r0), S, F, window)
     return torch.view_as_complex(out)
 
 

@@ -17,6 +17,8 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs import SERF_AUDIO as cfg
+from repro_torch.core.plans import Preprocessor
+from repro_torch.data.loader import audio_batch_maker
 from repro_torch.kernels.fir_hpf import ops as FO
 from repro_torch.kernels.fir_hpf import ref as FR
 from repro_torch.kernels.fused_tail import ops as TO
@@ -190,3 +192,112 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
         TO.fused_tail_spectrum_cuda(
             torch.randn(2, 1000, device=card),
             torch.tensor([0], dtype=torch.int64, device=card), cfg)
+
+
+# ---------------------------------------------------------- row blocks
+
+ROWS = 70_000                       # more than a grid's y axis takes
+
+
+@pytest.mark.parametrize("name", ["fir_hpf", "stft_dft", "mmse_stsa",
+                                  "fused_tail"])
+def test_wrappers_take_more_rows_than_a_grid_axis(card, name):
+    """70,000 rows at a short length against the plain version; the STFT
+    and MMSE wrappers launch once per block of 65,535 rows."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    kernels.reset_launches()
+    if name == "fir_hpf":
+        x = torch.randn(ROWS, 300, generator=gen, device=card) * 0.3
+        taps = FR.bandpass_decimate_taps(1000.0, 11_025.0, 44_100, 129)
+        _close(FO.fir_cuda(x, taps, 2), FR.fir_ref(x, taps, 2), 1e-4, 1e-5)
+        want_launches = 1
+    elif name == "stft_dft":
+        x = torch.randn(ROWS, 512, generator=gen, device=card) * 0.3
+        _close(SO.stft_cuda(x), SR.stft_ref(x), 2e-4, 2e-4)
+        want_launches = 2
+    elif name == "mmse_stsa":
+        power = torch.rand(ROWS, 4, 129, generator=gen, device=card) + 0.1
+        noise = MR.estimate_noise_psd(power, 2)
+        _close(MO.mmse_gain_cuda(power, noise),
+               MR.mmse_stsa_gain_ref(power, noise), 1e-4, 2e-5)
+        want_launches = 2
+    else:
+        wave = torch.randn(8, 1024, generator=gen, device=card) * 0.3
+        idx = torch.arange(ROWS, device=card, dtype=torch.int32) % 9
+        got = TO.fused_tail_spectrum_cuda(wave, idx, cfg)
+        _close(got, TR.fused_tail_spectrum_ref(wave, idx, cfg), 2e-4, 2e-4)
+        assert not torch.view_as_real(got[8::9]).any()      # pad rows
+        want_launches = 1
+    assert kernels.launches()[name] == want_launches
+
+
+# ------------------------------------------------------------ the plans
+
+def _stream(n_batches, batch_long_chunks=2):
+    make = audio_batch_maker(seed=25, batch_long_chunks=batch_long_chunks)
+    return [(w, (make(w)[0], None)) for w in range(n_batches)]
+
+
+def _assert_same(got, want):
+    assert [r.wid for r in got] == [r.wid for r in want]
+    for r, w in zip(got, want):
+        for m in ("keep", "rain", "silence", "cicada15"):
+            assert torch.equal(getattr(r.det, m).cpu(),
+                               getattr(w.det, m).cpu()), m
+        assert r.n_kept == w.n_kept
+        np.testing.assert_array_equal(r.cleaned, w.cleaned)
+
+
+@pytest.mark.parametrize("plan", ["async", "streaming"])
+def test_async_plans_bitwise_equal_two_phase_on_card(card, plan):
+    """Six batches with every result held until the end: a staging slot or
+    a readback buffer written again too early would show here."""
+    stream = _stream(6)
+    want = list(Preprocessor(cfg, plan="two_phase").run(stream))
+    pre = Preprocessor(cfg, plan=plan)
+    got = list(pre.run(stream))
+    _assert_same(got, want)
+    assert any(t["in_flight"] >= 2 for t in pre.plan.last_timings)
+    assert sum(r.n_kept for r in got) > 0
+
+
+def test_async_plan_keeps_an_input_view_out_of_its_ring(card):
+    """A mono graph whose wave5 is a view of its input (`split_final`
+    reshapes it): the tail of batch k runs after batch k+3 was uploaded
+    into k's device slot, so the plan must not let wave5 live there."""
+    stages = ("split_final", "removal_point", "mmse")
+    stream = [(w, (chunks.mean(axis=1), None))
+              for w, (chunks, _) in _stream(6)]
+    want = list(Preprocessor(cfg, plan="two_phase", stages=stages,
+                             source_channels=1).run(stream))
+    pre = Preprocessor(cfg, plan="async", stages=stages, source_channels=1)
+    assert pre.plan.donate
+    got = list(pre.run(stream))
+    _assert_same(got, want)
+    for r, w in zip(got, want):
+        assert torch.equal(r.det.wave5, w.det.wave5)
+
+
+def test_async_staging_ring_is_pinned(card):
+    pre = Preprocessor(cfg, plan="async", depth=3)
+    list(pre.run(_stream(5)))
+    st = pre.plan.staging
+    assert st.donate and len(st.pinned) == len(st.dev) == 4
+    assert all(p.is_pinned() for p in st.pinned)
+    times = st.upload_times()
+    assert len(times) == 5
+    assert all(stage_ms >= 0.0 and dma_ms > 0.0 for stage_ms, dma_ms in times)
+
+
+@pytest.mark.parametrize("plan", ["two_phase", "async"])
+def test_cuda_tensor_batch_enters_without_a_copy(card, plan):
+    chunks = _stream(2)[1][1][0]
+    pre = Preprocessor(cfg, plan=plan)
+    want = pre(chunks)
+    x = torch.as_tensor(chunks, device=card)
+    assert pre.plan._to_device(x) is x
+    staged = len(pre.plan.staging.log) if pre.plan.staging else 0
+    got = pre(x)
+    _assert_same([got], [want])
+    if pre.plan.staging:
+        assert len(pre.plan.staging.log) == staged      # no upload
