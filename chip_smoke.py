@@ -20,25 +20,38 @@ outside a checkout of the repo. Phases, any failure exits non-zero:
      path's largest survivor batch; `chain_ms` is the MMSE kernel on one
      chain of 860 frames: this implementation's floor for a recurrence of
      860 steps, measured in the run beside `bound_ms` (not a bound of the
-     function).
-  3. main path: four cells (`CELLS`) of `Preprocessor(SERF_AUDIO, ...)` on
-     the card over 3 batches of `audio_batch_maker(seed=25,
+     function). The direct-DFT paths of the STFT and fused-tail kernels
+     (`stft_dft_generic`, `fused_tail_generic`) at windows 382 and 200, the
+     fused tail with and without the high-pass.
+  3. main path: seven cells (`CELLS`) of `Preprocessor(SERF_AUDIO, ...)`
+     on the card over 3 batches of `audio_batch_maker(seed=25,
      batch_long_chunks=4)` (12 minutes of stereo 44.1 kHz audio):
-     `two_phase` with the fused tail and with `fuse_tail=False`, and the
+     `two_phase` with the fused tail and with `fuse_tail=False`, the
      asynchronous `async` (depth 2) and `streaming` plans with the fused
-     tail. Each is warmed up over one batch, then driven once with the
-     launch counts set to 0 just before and read just after: every kernel
-     of its path must have launched. The two_phase cells' batch 0 must
-     match the port's own CPU run (equal masks, cleaned audio within
-     2e-4); the staged cell the fused one within 2e-4; the async and
-     streaming cells the fused two_phase cell bitwise, with at least one
-     dispatch that overlapped another batch, and the async cell's
-     profiled pass must copy no batch from pageable memory. Printed: MB/s
-     of source audio (median, min and max of 5 timed passes per cell, the
+     tail, the no-early-exit `fused` plan, and `cached` around two_phase,
+     cold (every run from an emptied store) and warm (every batch a hit).
+     Each is warmed up (over one batch; the warm cached cell over all
+     three, which fills its store), then driven once with the launch
+     counts set to 0 just before and read just after: every kernel of its
+     path must have launched, and none in the warm cached cell. The
+     two_phase cells' batch 0 must match the port's own CPU run (equal
+     masks, cleaned audio within 2e-4); the staged cell the fused one
+     within 2e-4; the async, streaming and both cached cells the fused
+     two_phase cell bitwise, with at least one dispatch of the async cell
+     that overlapped another batch and no batch copied from pageable
+     memory in its profiled pass; the fused plan's masks the two_phase
+     cell's exactly and its kept rows the staged cell's survivors within
+     rtol 1e-4 / atol 1e-5 (reported: whether bitwise). Printed: MB/s of
+     source audio (median, min and max of 5 timed passes per cell, the
      cells in turns), the chunks kept, the host staging and DMA ms of each
      upload of the asynchronous cells, and one profiled pass per cell
      (device time by kernel, copies by kind; its trace goes to
-     `build/chip_smoke/`).
+     `build/chip_smoke/`). Then a kill and resume of the cached cell with
+     a run journal (one result taken, the generator closed, the run
+     resumed: batches [0, 1, 2] once each, 2 misses, output bitwise equal
+     to two_phase's), and batch 0 at a 382-sample window through
+     two_phase, whose run must launch the direct-DFT kernels and match the
+     port's CPU run.
   4. one JSON line with every kernel's numbers, then the result line
      `{"ok": true, "device": {...}}` last.
 
@@ -49,6 +62,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -62,13 +76,25 @@ MMSE_OPS_PER_STEP = 64          # f32 operations of one mmse_step (mmse.cuh),
 #                                 exp, sqrt and divide counted as one each
 TOL = {"fir_hpf": (1e-4, 1e-5), "stft_dft": (2e-4, 2e-4),
        "mmse_stsa": (1e-4, 2e-5), "fused_tail": (2e-4, 2e-4),
-       "main_path": (2e-4, 2e-4)}   # (rtol, atol)
-SOURCES = {"fir_hpf": "fir", "stft_dft": "stft", "mmse_stsa": "mmse",
-           "fused_tail": "fused_tail"}
+       "stft_dft_generic": (2e-4, 2e-4), "fused_tail_generic": (2e-4, 2e-4),
+       "main_path": (2e-4, 2e-4),
+       "plan_equivalence": (1e-4, 1e-5)}   # (rtol, atol)
+# kernel -> (source, the headers of csrc/ its path runs)
+SOURCES = {"fir_hpf": ("fir.cu", ()),
+           "stft_dft": ("stft.cu", ("fft.cuh",)),
+           "mmse_stsa": ("mmse.cu", ("mmse.cuh",)),
+           "fused_tail": ("fused_tail.cu", ("fft.cuh", "mmse.cuh")),
+           "stft_dft_generic": ("stft.cu", ("dft.cuh",)),
+           "fused_tail_generic": ("fused_tail.cu", ("dft.cuh", "mmse.cuh"))}
 REPLACES = {"fir_hpf": "src/repro/kernels/fir_hpf/kernel.py:62",
             "stft_dft": "src/repro/kernels/stft_dft/kernel.py:82",
             "mmse_stsa": "src/repro/kernels/mmse_stsa/kernel.py:91",
-            "fused_tail": "src/repro/kernels/fused_tail/kernel.py:201"}
+            "fused_tail": "src/repro/kernels/fused_tail/kernel.py:201",
+            "stft_dft_generic": "src/repro/kernels/stft_dft/kernel.py:82",
+            "fused_tail_generic":
+                "src/repro/kernels/fused_tail/kernel.py:201"}
+W382 = {"stft_window": 382, "stft_hop": 191}    # a window only the DFT takes
+W200 = {"stft_window": 200, "stft_hop": 100}
 
 
 class SmokeFailure(Exception):
@@ -180,8 +206,11 @@ def kernel_checks(torch, np, timer, peak_flops):
                n_flops, **extra):
         bound_ms, bound_by = bound(n_bytes, n_flops, peak_flops)
         rtol, atol = TOL[name]
+        cu, headers = SOURCES[name]
         rec = {"name": name, "route": "cuda",
-               "source": f"src/repro_torch/kernels/csrc/{SOURCES[name]}.cu",
+               "source": f"src/repro_torch/kernels/csrc/{cu}",
+               "headers": [f"src/repro_torch/kernels/csrc/{h}"
+                           for h in headers],
                "replaces": REPLACES[name], "shape": shape,
                "max_abs_err": err, "rtol": rtol, "atol": atol,
                "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
@@ -233,36 +262,60 @@ def kernel_checks(torch, np, timer, peak_flops):
                     "bound_ms": s1["bound_ms"], "bound_by": s1["bound_by"],
                     "bytes": s1["n_bytes"], "flops": s1["n_flops"]})
 
-    # STFT: the detection STFT, (16, 330,750) -> (16, 2582, 129)
-    B, S, W, H = 16, 330_750, cfg.stft_window, cfg.stft_hop
-    K = W // 2 + 1
+    # STFT: the detection STFT, (16, 330,750) -> (16, 2582, 129); and the
+    # direct-DFT path at windows 382 and 200 on the same rows
+    B, S = 16, 330_750
     x = torch.randn((B, S), generator=gen, device="cuda") * 0.3
-    got = stft_ops.stft_cuda(x, W, H)
-    want = stft_ref.stft_ref(x, W, H)
-    torch.cuda.synchronize()
-    err, ok = compare(torch, got, want, *TOL["stft_dft"])
-    Fr = got.shape[1]
-    win = torch.as_tensor(stft_ref.hamming(W), dtype=torch.float32,
-                          device="cuda")
-    lib = torch.stft(x, n_fft=W, hop_length=H, window=win, center=False,
-                     return_complex=True)
-    lib_err = float((lib.transpose(1, 2) - want).abs().max())
-    record("stft_dft", f"x ({B}, {S}) -> ({B}, {Fr}, {K}) complex", err, ok,
-           timer(lambda: stft_ops.stft_cuda(x, W, H)),
-           timer(lambda: stft_ref.stft_ref(x, W, H)),
-           timer(lambda: torch.stft(x, n_fft=W, hop_length=H, window=win,
-                                    center=False, return_complex=True)),
-           4 * B * ((Fr - 1) * H + W) + 4 * 3 * W + 8 * B * Fr * K,
-           stft_flops(B * Fr, W),
-           library_call="torch.stft (cuFFT; (B, K, F) layout)",
-           library_max_abs_err=lib_err)
-    rec = results["stft_dft"]
-    rec["kernel_over_library"] = rec["ms"] / rec["library_ms"]
-    del x, got, want, lib
+
+    def stft_case(W):
+        H, K = W // 2, W // 2 + 1
+        got = stft_ops.stft_cuda(x, W, H)
+        want = stft_ref.stft_ref(x, W, H)
+        torch.cuda.synchronize()
+        err, ok = compare(torch, got, want, *TOL["stft_dft"])
+        Fr = got.shape[1]
+        win = torch.as_tensor(stft_ref.hamming(W), dtype=torch.float32,
+                              device="cuda")
+        lib = torch.stft(x, n_fft=W, hop_length=H, window=win, center=False,
+                         return_complex=True)
+        lib_err = float((lib.transpose(1, 2) - want).abs().max())
+        del got, want, lib
+        n_bytes = 4 * B * ((Fr - 1) * H + W) + 4 * 3 * W + 8 * B * Fr * K
+        n_flops = stft_flops(B * Fr, W)
+        b_ms, b_by = bound(n_bytes, n_flops, peak_flops)
+        c = dict(
+            shape=f"x ({B}, {S}) -> ({B}, {Fr}, {K}) complex, W={W}",
+            err=err, ok=ok, ms=timer(lambda: stft_ops.stft_cuda(x, W, H)),
+            plain_ms=timer(lambda: stft_ref.stft_ref(x, W, H)),
+            library_ms=timer(lambda: torch.stft(
+                x, n_fft=W, hop_length=H, window=win, center=False,
+                return_complex=True)),
+            n_bytes=n_bytes, n_flops=n_flops, bound_ms=b_ms, bound_by=b_by,
+            library_max_abs_err=lib_err)
+        c["kernel_over_library"] = c["ms"] / c["library_ms"]
+        return c
+
+    def stft_record(name, c, **more):
+        record(name, c["shape"], c["err"], c["ok"], c["ms"], c["plain_ms"],
+               c["library_ms"], c["n_bytes"], c["n_flops"],
+               library_call="torch.stft (cuFFT; (B, K, F) layout)",
+               library_max_abs_err=c["library_max_abs_err"],
+               kernel_over_library=c["kernel_over_library"], **more)
+
+    stft_record("stft_dft", stft_case(cfg.stft_window))
+    c200 = stft_case(200)
+    check(c200["ok"], f"stft_dft_generic (W=200): kernel disagrees with its "
+                      f"plain version (max |err| {c200['err']:.3g})")
+    stft_record("stft_dft_generic", stft_case(382), w200={
+        k: c200[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                             "bound_ms", "bound_by", "kernel_over_library")}
+        | {"max_abs_err": c200["err"], "bytes": c200["n_bytes"],
+           "flops": c200["n_flops"]})
+    del x
 
     # MMSE gain: the staged survivor tail, power (16, 860, 129), and
     # (35, 860, 129), the main path's largest survivor batch
-    Fv = 860
+    Fv, K = 860, cfg.n_bins
     args = (cfg.mmse_alpha, cfg.mmse_gain_floor)
 
     def mmse_case(R, time_plain):
@@ -307,13 +360,16 @@ def kernel_checks(torch, np, timer, peak_flops):
     del m, m35, p1, n1
 
     # fused tail: wave (48, 110,250), 16 indices with one pad slot, and all
-    # 48 rows; with and without the high-pass; noise_est_frames = 100
+    # 48 rows; with and without the high-pass; noise_est_frames = 100; and
+    # the direct-DFT kernel at windows 382 and 200
     B, S = 48, 110_250
     wave = torch.randn((B, S), generator=gen, device="cuda") * 0.3
     real = np.sort(np.random.RandomState(7).choice(B, 15, replace=False))
-    Fv = stft_ref.num_frames(S, W, H)
 
     def fused_case(idx_np, tcfg, hpf, time_plain=True):
+        W, H = tcfg.stft_window, tcfg.stft_hop
+        K = W // 2 + 1
+        Fv = stft_ref.num_frames(S, W, H)
         idx = torch.as_tensor(np.asarray(idx_np, np.int32), device="cuda")
         pads = [i for i, v in enumerate(idx_np) if not 0 <= v < B]
         n_real = len(idx_np) - len(pads)
@@ -342,6 +398,10 @@ def kernel_checks(torch, np, timer, peak_flops):
         b_ms, b_by = bound(n_bytes, n_flops, peak_flops)
         return dict(
             err=err, ok=ok and wok, wave_err=werr, rows=len(idx_np),
+            shape=f"wave ({B}, {S}), idx ({len(idx_np)},) with "
+                  f"{len(pads)} pad slot(s) -> ({len(idx_np)}, {Fv}, {K}) "
+                  f"complex, W={W}, hpf={hpf}, "
+                  f"noise_est_frames={tcfg.noise_est_frames}",
             ms=timer(lambda: ft_ops.fused_tail_spectrum_cuda(wave, idx, tcfg,
                                                              hpf)),
             plain_ms=(timer(lambda: ft_ref.fused_tail_spectrum_ref(
@@ -360,23 +420,35 @@ def kernel_checks(torch, np, timer, peak_flops):
              "noise100_hpf": fused_case(idx16, noise100, True,
                                         time_plain=False)}
     v = fused_case(idx16, cfg, False)
-    for label, c in cases.items():
-        check(c["ok"], f"fused_tail ({label}): kernel disagrees with its "
-                       f"plain version (max |err| {c['err']:.3g})")
+    cfg382 = dataclasses.replace(cfg, **W382)
+    generic = {"hpf": fused_case(idx16, cfg382, True, time_plain=False),
+               "w200": fused_case(idx16, dataclasses.replace(cfg, **W200),
+                                  False, time_plain=False),
+               "w200_hpf": fused_case(idx16, dataclasses.replace(cfg, **W200),
+                                      True, time_plain=False)}
+    g = fused_case(idx16, cfg382, False)
+    for name, group in (("fused_tail", cases), ("fused_tail_generic",
+                                                generic)):
+        for label, c in group.items():
+            check(c["ok"], f"{name} ({label}): kernel disagrees with its "
+                           f"plain version (max |err| {c['err']:.3g})")
 
     def extra(c):
         return {"rows": c["rows"], "max_abs_err": c["err"],
                 "cleaned_max_abs_err": c["wave_err"], "ms": c["ms"],
                 "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                "bound_by": c["bound_by"]}
+                "bound_by": c["bound_by"], "shape": c["shape"]}
 
-    record("fused_tail",
-           f"wave ({B}, {S}), idx ({len(idx16)},) with 1 pad slot -> "
-           f"({len(idx16)}, {Fv}, {K}) complex", v["err"], v["ok"], v["ms"],
+    record("fused_tail", v["shape"], v["err"], v["ok"], v["ms"],
            v["plain_ms"], None, v["n_bytes"], v["n_flops"],
            cleaned_max_abs_err=v["wave_err"], chain_ms=chain_ms,
            ms_over_chain=v["ms"] / chain_ms,
            **{label: extra(c) for label, c in cases.items()})
+    record("fused_tail_generic", g["shape"], g["err"], g["ok"], g["ms"],
+           g["plain_ms"], None, g["n_bytes"], g["n_flops"],
+           cleaned_max_abs_err=g["wave_err"], chain_ms=chain_ms,
+           ms_over_chain=g["ms"] / chain_ms,
+           **{label: extra(c) for label, c in generic.items()})
     return results
 
 
@@ -466,15 +538,25 @@ def device_profile(torch, pre, batches, trace_path):
             "top": [[k[:80], ms, n] for k, (ms, n) in top]}
 
 
+STORES = ROOT / "build" / "chip_smoke" / "stores"
 # cell -> (plan, plan arguments); the first is the one the others are held
-# against bitwise (same fused tail), the two two_phase cells are also held
-# against the port's CPU run
+# against (bitwise where they run the same fused tail), the two two_phase
+# cells are also held against the port's CPU run
 CELLS = {"serf_two_phase_fused": ("two_phase", {}),
          "serf_two_phase_staged": ("two_phase", {"fuse_tail": False}),
          "serf_async_fused": ("async", {}),
-         "serf_streaming_fused": ("streaming", {})}
+         "serf_streaming_fused": ("streaming", {}),
+         "serf_fused": ("fused", {}),
+         "serf_cached_two_phase": ("cached", {"store": str(STORES / "cold")}),
+         "serf_cached_two_phase_warm": ("cached",
+                                        {"store": str(STORES / "warm")})}
 # kernels a cell's main-path run must launch (the fused path's by default)
-NEED = {"serf_two_phase_staged": ("fir_hpf", "stft_dft", "mmse_stsa")}
+NEED = {"serf_two_phase_staged": ("fir_hpf", "stft_dft", "mmse_stsa"),
+        "serf_fused": ("fir_hpf", "stft_dft", "mmse_stsa"),
+        "serf_cached_two_phase_warm": ()}
+# the cached cell whose every run starts from an emptied store (all
+# misses), and the one whose store the warm-up fills (all hits)
+COLD, WARM = "serf_cached_two_phase", "serf_cached_two_phase_warm"
 
 
 def pageable_uploads(copies, batch_bytes):
@@ -483,6 +565,13 @@ def pageable_uploads(copies, batch_bytes):
     return [name for name, rec in copies.items()
             if "HtoD" in name and "Pageable" in name
             and rec["max_bytes"] >= batch_bytes]
+
+
+def empty_store(pre):
+    """Empty a cached cell's store on disk (the plan keeps its handle)."""
+    objects = Path(pre.plan.store.directory) / "objects"
+    shutil.rmtree(objects)
+    objects.mkdir()
 
 
 def main_path(torch, np, card):
@@ -495,22 +584,37 @@ def main_path(torch, np, card):
     batches = [(w, make(w)) for w in range(3)]     # set-up, not timed
     src = sum(c.nbytes for _, (c, _) in batches)
     batch_bytes = batches[0][1][0].nbytes
+    shutil.rmtree(STORES, ignore_errors=True)
     cells = {label: Preprocessor(SERF_AUDIO, plan=plan, **kw)
              for label, (plan, kw) in CELLS.items()}
-    results, launch_counts, uploads, in_flight = {}, {}, {}, {}
+
+    def before_run(label):
+        if label == COLD:
+            empty_store(cells[label])
+
+    results, launch_counts, uploads, in_flight, store_run = {}, {}, {}, {}, {}
     for label, pre in cells.items():
         check(pre.device.type == "cuda", "Preprocessor did not pick the card")
         # warm-up over one batch: cuFFT plans, the allocators, the staging
-        # ring's cudaHostAlloc
-        list(pre.run(batches[:1]))
+        # ring's cudaHostAlloc; over all three for the warm cached cell,
+        # which fills its store
+        before_run(label)
+        list(pre.run(batches if label == WARM else batches[:1]))
         torch.cuda.synchronize()
-        staging = pre.plan.staging
+        staging = getattr(pre.plan, "staging", None)
         if staging is not None:
             staging.log.clear()
+        before_run(label)
+        stats0 = (pre.plan.stats.as_dict() if pre.plan.name == "cached"
+                  else None)
         kernels.reset_launches()
         run = list(pre.run(batches))               # the main-path run
         torch.cuda.synchronize()
         launch_counts[label] = kernels.launches()
+        if stats0 is not None:                     # this run's hits, misses
+            stats1 = pre.plan.stats.as_dict()
+            store_run[label] = {k: stats1[k] - stats0[k]
+                                for k in ("hits", "misses", "writes")}
         # the asynchronous plans hand out `cleaned` as views of pinned
         # buffers; keep copies, so that the timed passes find those
         # buffers free in the caching host allocator as a consumer that
@@ -530,8 +634,9 @@ def main_path(torch, np, card):
     pass_staging = {label: [] for label in uploads}
     for rep in range(PASSES):
         for label in (list(cells) if rep % 2 == 0 else list(cells)[::-1]):
-            staging = cells[label].plan.staging
+            staging = getattr(cells[label].plan, "staging", None)
             logged = len(staging.log) if staging is not None else 0
+            before_run(label)
             t0 = time.perf_counter()
             list(cells[label].run(batches))
             torch.cuda.synchronize()
@@ -546,8 +651,10 @@ def main_path(torch, np, card):
                                pass_times[label])
         mb_per_s = sorted(src / 2**20 / s for s in pass_s)
         # per-layer split: one more pass, synchronising between the phases
+        # (the two-phase plans; the fused and cached plans have no split)
         detect_ms, tail_ms = [], []
-        for _, (audio, _) in batches:
+        for _, (audio, _) in (batches if hasattr(pre.plan, "_finish")
+                              else ()):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             det = pre.plan.detect(audio)
@@ -564,11 +671,13 @@ def main_path(torch, np, card):
                   and np.isfinite(r.cleaned).all(),
                   f"{label}: cleaned batch {r.wid} is malformed")
         med = statistics.median(mb_per_s)
+        before_run(label)
         profile = device_profile(
             torch, pre, batches,
             ROOT / "build" / "chip_smoke" / f"trace_{label}.json")
         rec = {"main_path": label, "plan": pre.plan.name,
-               "fuse_tail": pre.plan.fuse_tail, "launches": counts,
+               "fuse_tail": getattr(pre.plan, "fuse_tail", None),
+               "launches": counts,
                "passes": PASSES, "pass_s": pass_s, "mb_per_s_median": med,
                "mb_per_s_min": mb_per_s[0], "mb_per_s_max": mb_per_s[-1],
                "src_mb": src / 2**20, "kept": kept, "chunks": chunks,
@@ -578,11 +687,27 @@ def main_path(torch, np, card):
             rec.update(depth=pre.plan.depth, in_flight=in_flight[label],
                        uploads=uploads[label],
                        pass_staging_ms=pass_staging[label])
+        if label in store_run:
+            # the content keys of one pass alone (sha256 of the source on
+            # the host), three times: what of the pass no kernel does
+            hash_ms = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                for _, (audio, _) in batches:
+                    pre.plan._key(audio)
+                hash_ms.append((time.perf_counter() - t1) * 1e3)
+            rec.update(store_main_path_run=store_run[label],
+                       store=pre.plan.stats.as_dict(),
+                       hash_ms_per_pass=hash_ms)
         runs[label] = dict(rec, res=res)
+        note = {COLD: " (cold: every pass starts from an emptied store; "
+                      "kernels + hashing + disk writes)",
+                WARM: " (warm: every batch a hit; hashing + disk reads, "
+                      "no kernel)"}.get(label, "")
         print(f"plan={pre.plan.name} cell={label} card={card}  "
               f"{src / 2**20:.0f} MB source audio per pass, median of "
               f"{PASSES} passes  ->  {med:.2f} MB/s "
-              f"({mb_per_s[0]:.2f}-{mb_per_s[-1]:.2f})", flush=True)
+              f"({mb_per_s[0]:.2f}-{mb_per_s[-1]:.2f}){note}", flush=True)
         print(f"chunks kept {kept}/{chunks} ({label})", flush=True)
         for i, u in enumerate(uploads.get(label, ())):
             print(f"{label} upload of batch {i}: host staging "
@@ -594,6 +719,13 @@ def main_path(torch, np, card):
         for n in NEED.get(label, ("fir_hpf", "stft_dft", "fused_tail")):
             check(r["launches"][n] > 0,
                   f"main path ({label}) never launched kernel {n}")
+    check(not any(runs[WARM]["launches"].values()),
+          f"{WARM}: a warm pass launched kernels {runs[WARM]['launches']}")
+    for label, want in ((COLD, {"hits": 0, "misses": 3, "writes": 3}),
+                        (WARM, {"hits": 3, "misses": 0, "writes": 0})):
+        check(runs[label]["store_main_path_run"] == want,
+              f"{label}: the main-path run's store counts are "
+              f"{runs[label]['store_main_path_run']}, not {want}")
     for label in in_flight:
         check(max(in_flight[label]) >= 2,
               f"{label}: no dispatch overlapped another batch "
@@ -605,48 +737,152 @@ def main_path(torch, np, card):
 
     base = runs["serf_two_phase_fused"]["res"]
     for label in ("serf_two_phase_staged", "serf_async_fused",
-                  "serf_streaming_fused"):
-        bitwise = label != "serf_two_phase_staged"
+                  "serf_streaming_fused", "serf_fused", COLD, WARM):
+        bitwise = label not in ("serf_two_phase_staged", "serf_fused")
         for a, b in zip(base, runs[label]["res"]):
             check(a.wid == b.wid, f"{label}: batches out of order")
-            for m in ("keep", "rain", "silence", "cicada15"):
-                check(bool((getattr(a.det, m) == getattr(b.det, m)).all()),
-                      f"{label}: the {m} mask differs from two_phase's")
+            check_masks(a.det, b.det, f"{label} against two_phase's")
+            if label == "serf_fused":
+                continue              # held against the staged cell below
             check(a.cleaned.shape == b.cleaned.shape and (
                 np.array_equal(a.cleaned, b.cleaned) if bitwise
                 else np.allclose(a.cleaned, b.cleaned, rtol=2e-4,
                                  atol=2e-4)),
                 f"{label}: cleaned audio differs from two_phase's fused "
                 f"tail" + (" (bitwise)" if bitwise else " beyond 2e-4"))
+    for r in runs[WARM]["res"]:
+        check(not bool(r.det.wave5.any()), f"{WARM}: a hit's wave5 is not "
+                                           f"zeros")
+    # the no-early-exit plan's kept rows against the staged two_phase
+    # survivors: the same STFT and MMSE kernels on the same rows
+    diffs, bitwise = [], True
+    for a, b in zip(runs["serf_two_phase_staged"]["res"],
+                    runs["serf_fused"]["res"]):
+        check(a.cleaned.shape == b.cleaned.shape,
+              f"serf_fused: kept rows {b.cleaned.shape} against the staged "
+              f"cell's {a.cleaned.shape}")
+        bitwise &= bool(np.array_equal(a.cleaned, b.cleaned))
+        diffs.append(float(np.abs(a.cleaned - b.cleaned).max())
+                     if a.n_kept else 0.0)
+        check(np.allclose(b.cleaned, a.cleaned,
+                          *TOL["plan_equivalence"]),
+              f"serf_fused: kept rows differ from the staged cell's "
+              f"survivors beyond rtol 1e-4 / atol 1e-5 (max |err| "
+              f"{max(diffs):.3g})")
+    print(json.dumps({"serf_fused_vs_staged": {
+        "bitwise": bitwise, "max_abs_diff": diffs}}), flush=True)
 
     # batch 0 against the port's own CPU run on the same numpy input
     chunks0 = batches[0][1][0]
     cpu_pre = Preprocessor(SERF_AUDIO, plan="two_phase", device="cpu")
     cpu = cpu_pre(chunks0)
-    report = {}
-    for label in ("serf_two_phase_fused", "serf_two_phase_staged"):
-        gpu = runs[label]["res"][0]
-        flips = {}
-        for m in ("keep", "rain", "silence", "cicada15"):
-            g = getattr(gpu.det, m).cpu().numpy()
-            c = getattr(cpu.det, m).numpy()
-            if not (g == c).all():
-                flips[m] = np.flatnonzero(g != c).tolist()
-        if flips:
-            print(json.dumps({"mask_flips": flips, "margins": mask_margins(
-                torch, cpu_pre.graph, chunks0)}), flush=True)
-        check(not flips, f"{label}: masks differ from the CPU run: {flips}")
-        rtol, atol = TOL["main_path"]
-        diff = (float(np.abs(gpu.cleaned - cpu.cleaned).max())
-                if cpu.n_kept else 0.0)
-        report[label] = diff
-        check(gpu.cleaned.shape == cpu.cleaned.shape and np.allclose(
-            gpu.cleaned, cpu.cleaned, rtol=rtol, atol=atol),
-            f"{label}: cleaned audio differs from the CPU run "
-            f"(max |err| {diff:.3g})")
+    report = {label: against_cpu(torch, np, label, runs[label]["res"][0],
+                                 cpu, cpu_pre.graph, chunks0)
+              for label in ("serf_two_phase_fused", "serf_two_phase_staged")}
     print(json.dumps({"batch0_vs_cpu": report, "kept": cpu.n_kept,
                       "chunks": int(cpu.det.keep.numel())}), flush=True)
+
+    kill_and_resume(torch, np, batches, base)
+    runs["serf_w382_two_phase"] = window382(torch, np, chunks0)
     return runs
+
+
+def check_masks(a, b, what):
+    for m in ("keep", "rain", "silence", "cicada15"):
+        check(bool((getattr(a, m).cpu() == getattr(b, m).cpu()).all()),
+              f"{what}: the {m} masks differ")
+
+
+def against_cpu(torch, np, label, gpu, cpu, cpu_graph, chunks0):
+    """Hold one card result against the port's CPU run of the same batch:
+    equal masks (a flip prints every detector's margin to its threshold)
+    and cleaned audio within 2e-4. Returns the largest difference."""
+    flips = {}
+    for m in ("keep", "rain", "silence", "cicada15"):
+        g = getattr(gpu.det, m).cpu().numpy()
+        c = getattr(cpu.det, m).numpy()
+        if not (g == c).all():
+            flips[m] = np.flatnonzero(g != c).tolist()
+    if flips:
+        print(json.dumps({"mask_flips": flips, "cell": label,
+                          "margins": mask_margins(torch, cpu_graph,
+                                                  chunks0)}), flush=True)
+    check(not flips, f"{label}: masks differ from the CPU run: {flips}")
+    rtol, atol = TOL["main_path"]
+    diff = (float(np.abs(gpu.cleaned - cpu.cleaned).max())
+            if cpu.n_kept else 0.0)
+    check(gpu.cleaned.shape == cpu.cleaned.shape and np.allclose(
+        gpu.cleaned, cpu.cleaned, rtol=rtol, atol=atol),
+        f"{label}: cleaned audio differs from the CPU run "
+        f"(max |err| {diff:.3g})")
+    return diff
+
+
+def kill_and_resume(torch, np, batches, base):
+    """The cached two_phase cell with a run journal: take one result from
+    `run`, close the generator (the kill), then resume. Each batch must be
+    emitted once across the two runs, the resumed outputs must equal the
+    uncached two_phase cell's bitwise, and the resumed run must miss on
+    exactly the two batches the killed run never reached."""
+    from repro_torch.configs import SERF_AUDIO
+    from repro_torch.core.plans import Preprocessor
+    store = STORES / "resume"
+    pre = Preprocessor(SERF_AUDIO, plan="cached", store=store, journal=True)
+    gen = pre.run(batches)
+    first = [next(gen)]
+    gen.close()
+    pre2 = Preprocessor(SERF_AUDIO, plan="cached", store=store,
+                        journal=True, resume=True)
+    rest = list(pre2.run(batches))
+    torch.cuda.synchronize()
+    wids = sorted(r.wid for r in first + rest)
+    stats = pre2.plan.stats.as_dict()
+    rec = {"kill_and_resume": {"first": [r.wid for r in first],
+                               "resumed": [r.wid for r in rest],
+                               "store": stats}}
+    print(json.dumps(rec), flush=True)
+    check(wids == [0, 1, 2], f"kill and resume emitted {wids}, not "
+                             f"[0, 1, 2] once each")
+    check(stats["misses"] == 2, f"the resumed run missed {stats['misses']} "
+                                f"times, not 2")
+    for r in first + rest:
+        want = base[r.wid]
+        check_masks(r.det, want.det, f"kill and resume, batch {r.wid}")
+        check(np.array_equal(r.cleaned, want.cleaned),
+              f"kill and resume: batch {r.wid} differs from two_phase's "
+              f"(bitwise)")
+    return rec
+
+
+def window382(torch, np, chunks0):
+    """Batch 0 at a 382-sample window (the STFT and fused tail through the
+    direct DFT) through two_phase on the card, with the launch counts set
+    to 0 just before and read just after, held against the port's CPU run
+    of the same batch."""
+    from repro_torch import kernels
+    from repro_torch.configs import SERF_AUDIO
+    from repro_torch.core.plans import Preprocessor
+    cfg = dataclasses.replace(SERF_AUDIO, **W382)
+    pre = Preprocessor(cfg, plan="two_phase")
+    pre(chunks0)                                   # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    gpu = pre(chunks0)
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    cpu_pre = Preprocessor(cfg, plan="two_phase", device="cpu")
+    cpu = cpu_pre(chunks0)
+    diff = against_cpu(torch, np, "serf_w382_two_phase", gpu, cpu,
+                       cpu_pre.graph, chunks0)
+    rec = {"main_path": "serf_w382_two_phase", "window": 382,
+           "launches": counts, "kept": gpu.n_kept,
+           "chunks": int(gpu.det.keep.numel()), "vs_cpu_max_abs_err": diff}
+    print(json.dumps(rec), flush=True)
+    for n in ("fir_hpf", "stft_dft_generic", "fused_tail_generic"):
+        check(counts[n] > 0, f"serf_w382_two_phase never launched {n}")
+    check(counts["stft_dft"] == 0 and counts["fused_tail"] == 0,
+          f"serf_w382_two_phase launched an FFT kernel ({counts})")
+    return rec
 
 
 # ------------------------------------------------------------------- main

@@ -10,8 +10,9 @@ at construction time, before any audio runs.
     order raises `GraphValidationError` at build time.
   * `STAGES` — the registry; configs refer to stages by name.
   * `PipelineGraph` — validates the chain, records `removal_point` markers
-    and exposes `detection` (up to the first removal point) and the
-    survivor phase (`tail`, `tail_indexed`, `tail_indexed_fused`).
+    and exposes `detection` (up to the first removal point), the survivor
+    phase (`tail`, `tail_indexed`, `tail_indexed_fused`), the whole chain
+    with removed chunks masked (`fused`), and its `fingerprint`.
 
 State fields carried between stages:
   wave            (B, S) mono, or (B, C, S) stereo before `to_mono`
@@ -404,6 +405,13 @@ class PipelineGraph:
         self.out_geom = vs.geom
 
     @property
+    def fingerprint(self):
+        """Stable identity of the computation: config, stage names and
+        source geometry (all frozen, repr-stable), as the reference's; the
+        chunk store's content key hashes its repr."""
+        return (self.cfg, self.names, self.source_geom)
+
+    @property
     def has_removal_point(self) -> bool:
         return bool(self.removal_indices)
 
@@ -479,3 +487,12 @@ class PipelineGraph:
                 "the canonical fused tail; use tail_indexed")
         return fused_tail_ops.fused_tail(wave, idx, self.cfg,
                                          hpf=spec["hpf"])
+
+    def fused(self, audio) -> PipelineOutput:
+        """The whole chain on every chunk, removed chunks masked to zero in
+        `wave5` but still computed: the paper's no-early-exit baseline."""
+        out = self._outputs(self._run(self.stages, {"wave": audio}))
+        masked = torch.where(out.keep[:, None], out.wave5,
+                             torch.zeros((), dtype=out.wave5.dtype,
+                                         device=out.wave5.device))
+        return replace(out, wave5=masked)

@@ -68,11 +68,13 @@ def band_peakiness(power, lo_hz, hi_hz, window=256, rate_hz=22_050):
     psd = power.mean(dim=1)                              # (B, K)
     band_psd = psd[:, lo_bin:lo_bin + n_sel]             # sel is contiguous
     peak = band_psd.amax(dim=1)
-    # The middle element of the sorted bins is the median only for an odd
-    # bin count (K = window/2 + 1 = 129); `jnp.median` would average the
-    # two middle elements of an even count.
+    # `jnp.median`: the mean of the two middle elements of the sorted bins
+    # ((a + b) * 0.5), one and the same element for an odd bin count
+    # (K = window/2 + 1 is odd for a window of 4m, even for 4m + 2, such
+    # as 382). `torch.median` would return the lower one.
     K = psd.shape[1]
-    med = torch.sort(psd, dim=1).values[:, K // 2] + EPS
+    srt = torch.sort(psd, dim=1).values
+    med = (srt[:, (K - 1) // 2] + srt[:, K // 2]) * 0.5 + EPS
     peak_bin = torch.argmax(band_psd, dim=1) + lo_bin
     return peak / med, peak_bin
 

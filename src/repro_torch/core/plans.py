@@ -1,7 +1,11 @@
 """Execution plans: how a validated `PipelineGraph` runs on a batch stream.
 
-Three plans of the reference are ported:
+The reference's plans, but for the sharded one, are ported:
 
+  * `FusedPlan`     -- the whole chain on every chunk in one pass, removed
+                       chunks masked but still denoised: the paper's
+                       no-early-exit baseline, and the plan for a graph
+                       without a removal point.
   * `TwoPhasePlan`  -- detection -> the host reads back the keep mask -> a
                        padded survivor-index vector -> the survivor tail on
                        the device, which gathers the survivors out of the
@@ -19,6 +23,10 @@ Three plans of the reference are ported:
                        pinned host buffers, a copy stream one batch ahead.
   * `StreamingPlan` -- `AsyncPlan` at depth 1, linear padding, no donation
                        and no held-back tail.
+  * `CachedPlan`    -- any of the above behind a content-addressed
+                       `store.ChunkStore` (a batch seen before is a lookup)
+                       and a `store.RunJournal` (a killed run resumes,
+                       each batch emitted once across the kill).
 
 Emission is always input order, each batch exactly once. Per-batch
 `BatchResult.timings` keep the reference's keys.
@@ -32,11 +40,13 @@ a non-canonical tail.
 
 The port runs eagerly: no compile cache. Bucketing (`bucket`, `pad_multiple`)
 still decides the tail's row count, as in the reference. The reference's
-other plans (fused, sharded, cached) are later slices.
+`ShardedPlan` comes with the distribution slice.
 """
 from __future__ import annotations
 
 import collections
+import operator
+import os
 import time
 from dataclasses import dataclass, field, replace
 
@@ -47,7 +57,10 @@ from repro_torch.core import scheduler as SCHED
 from repro_torch.core import transfer
 from repro_torch.core.graph import (GraphValidationError, PipelineGraph,
                                     PipelineOutput)
+from repro_torch.data.queue import WorkQueue
 from repro_torch.device import resolve_device
+from repro_torch.dist.service import pack_result, unpack_result
+from repro_torch.store import ChunkStore, RunJournal, content_key
 
 # Cap on the per-batch timing dicts `AsyncPlan.last_timings` keeps.
 TIMINGS_CAP = 4096
@@ -121,7 +134,47 @@ class _PendingTail:
     timings: dict
 
 
-class TwoPhasePlan:
+class ExecutionPlan:
+    """What every plan shares: its graph, its device (None: the card) and
+    the survivor padding multiple; `run` maps `__call__` over a stream."""
+    name = "base"
+
+    def __init__(self, graph: PipelineGraph, pad_multiple=1, device=None):
+        self.graph = graph
+        self.device = resolve_device(device)
+        self.pad_multiple = max(1, int(pad_multiple))
+
+    def _to_device(self, audio):
+        return torch.as_tensor(audio, dtype=torch.float32, device=self.device)
+
+    def detect(self, audio) -> PipelineOutput:
+        return self.graph.detection(self._to_device(audio))
+
+    def __call__(self, audio) -> BatchResult:
+        raise NotImplementedError
+
+    def run(self, batches):
+        for wid, chunks, extra in _iter_batches(batches):
+            yield replace(self(chunks), wid=wid, labels=extra)
+
+
+class FusedPlan(ExecutionPlan):
+    """The whole chain on every chunk (`PipelineGraph.fused`), then the
+    kept rows of the masked `wave5`, gathered on the device and read back.
+    Takes any valid graph, with or without a removal point."""
+    name = "fused"
+
+    def __call__(self, audio) -> BatchResult:
+        x = self._to_device(audio)
+        out = self.graph.fused(x)
+        keep = out.keep.cpu().numpy()
+        idx = torch.from_numpy(np.flatnonzero(keep)).to(out.wave5.device)
+        cleaned = out.wave5.index_select(0, idx).cpu().numpy()
+        return BatchResult(cleaned=cleaned, det=out, n_kept=int(keep.sum()),
+                           src_bytes=x.numel() * x.element_size())
+
+
+class TwoPhasePlan(ExecutionPlan):
     """`pad_multiple` and `bucket` set the survivor tail's row count
     (`scheduler.quantize_survivors`). `donate` lets the asynchronous plans
     write a later batch into the device input buffer of an earlier one once
@@ -135,10 +188,9 @@ class TwoPhasePlan:
         if not graph.has_removal_point:
             raise GraphValidationError(
                 f"plan '{self.name}' needs a 'removal_point' stage in the "
-                f"graph (stages: {graph.names})")
-        self.graph = graph
-        self.device = resolve_device(device)
-        self.pad_multiple = max(1, int(pad_multiple))
+                f"graph (stages: {graph.names}); use the fused plan for "
+                f"graphs without early exit")
+        super().__init__(graph, pad_multiple, device)
         self.bucket = bucket
         SCHED.quantize_survivors(0, 1, 1, bucket)     # validate the mode
         if donate is None:
@@ -155,15 +207,9 @@ class TwoPhasePlan:
         self.fuse_tail = bool(fuse_tail)
         self.staging = None             # synchronous copies
 
-    def _to_device(self, audio):
-        return torch.as_tensor(audio, dtype=torch.float32, device=self.device)
-
     def _readback(self, t) -> transfer.Readback:
         return (transfer.Readback(t) if self.staging is None
                 else self.staging.readback(t))
-
-    def detect(self, audio) -> PipelineOutput:
-        return self.graph.detection(self._to_device(audio))
 
     def _dispatch(self, audio, wid=None, extra=None):
         """Bring a batch to the device, enqueue its detection and start the
@@ -251,10 +297,6 @@ class TwoPhasePlan:
     def __call__(self, audio) -> BatchResult:
         return self._emit(self._start_tail(self._dispatch(audio)))
 
-    def run(self, batches):
-        for wid, chunks, extra in _iter_batches(batches):
-            yield replace(self(chunks), wid=wid, labels=extra)
-
 
 class AsyncPlan(TwoPhasePlan):
     """Depth-K asynchronous streaming executor: a bounded window of `depth`
@@ -333,7 +375,189 @@ class StreamingPlan(AsyncPlan):
                          fuse_tail=fuse_tail, device=device)
 
 
-PLANS = {p.name: p for p in (TwoPhasePlan, StreamingPlan, AsyncPlan)}
+class SizedIter:
+    """One-shot iterable with a length hint: a stream drawn lazily whose
+    length CachedPlan can learn without drawing it (its miss stream to the
+    inner plan, the launcher's synthetic stream)."""
+
+    def __init__(self, it, n):
+        self._it, self._n = iter(it), n
+
+    def __iter__(self):
+        return self._it
+
+    def __length_hint__(self):
+        return self._n
+
+
+def _host_f32(chunks) -> np.ndarray:
+    """A raw batch (array, or tensor on any device) as host f32: what the
+    content key hashes and the inner plan receives."""
+    if torch.is_tensor(chunks):
+        chunks = chunks.detach().cpu()
+    return np.asarray(chunks, np.float32)
+
+
+class CachedPlan(ExecutionPlan):
+    """Content-addressed caching and resumability around any inner plan.
+
+    Every batch is keyed by the content hash of (raw chunk bytes, graph
+    fingerprint, framework tag `torch-<device type>`) and looked up in the
+    `ChunkStore` before any dispatch; only misses flow through the inner
+    plan (one sub-stream); results merge back in stream order, and fresh
+    ones are written to the store as the inner plan emits them.
+
+    With a `RunJournal` the plan snapshots its emission queue before every
+    result it yields; `resume=True` restores that snapshot and skips
+    exactly the batches the dead process emitted, so each is emitted once
+    across the kill. Results the dead run computed but never emitted come
+    back as store hits.
+
+    `store=None` is a pass-through. A store given as a path evicts and
+    recomputes a corrupt entry (`evict_corrupt=True`); pass a `ChunkStore`
+    for archival strictness. A hit's `det` holds masks and stats as CPU
+    tensors and a zero `wave5` of the right shape: the pre-denoise waveform
+    is not stored."""
+    name = "cached"
+
+    def __init__(self, graph, pad_multiple=1, inner="two_phase", store=None,
+                 journal=None, resume=False, device=None, **inner_kwargs):
+        super().__init__(graph, pad_multiple, device)
+        inner_cls = PLANS[inner] if isinstance(inner, str) else inner
+        self.inner = inner_cls(graph, pad_multiple, device=self.device,
+                               **inner_kwargs)
+        if isinstance(store, (str, os.PathLike)):
+            store = ChunkStore(store, evict_corrupt=True)
+        self.store = store
+        if journal is True:
+            if store is None:
+                raise ValueError(
+                    "journal=True derives the journal path from the store "
+                    "directory: pass a store, or an explicit journal")
+            journal = os.path.join(store.directory, "journal")
+        if isinstance(journal, (str, os.PathLike)):
+            journal = RunJournal(journal)
+        self.journal = journal
+        self.resume = bool(resume)
+        if self.resume and self.journal is None:
+            raise ValueError("resume=True needs a journal")
+
+    @property
+    def stats(self):
+        """The store's hit/miss/bytes accounting (None when uncached)."""
+        return self.store.stats if self.store is not None else None
+
+    def _key(self, chunks_np):
+        return content_key(chunks_np, self.graph.fingerprint,
+                           f"torch-{self.device.type}")
+
+    def _result(self, arrays, meta, wid, extra) -> BatchResult:
+        det, f = unpack_result({**arrays, **meta})
+        return BatchResult(cleaned=f["cleaned"], det=det, n_kept=f["n_kept"],
+                           wid=wid, labels=extra, src_bytes=f["src_bytes"])
+
+    def __call__(self, audio) -> BatchResult:
+        if self.store is None:
+            return self.inner(audio)
+        x = _host_f32(audio)
+        key = self._key(x)
+        hit = self.store.get(key, src_bytes=x.nbytes)
+        if hit is not None:
+            return self._result(*hit, wid=None, extra=None)
+        res = self.inner(x)
+        self.store.put_payload(key, pack_result(res))
+        return res
+
+    def run(self, batches):
+        """BatchResults in stream order. The queue completes and the
+        journal records immediately before each yield, so an abandoned
+        generator resumes from the next batch it did not emit.
+
+        Sized streams are drawn lazily: hits in the stream-order prefix
+        are emitted during the probe, and raw batches are held only for
+        misses, each released as the inner plan draws it. An unsized
+        generator is drawn in full first, to learn the stream length that
+        the journal and the resume guard need."""
+        n = operator.length_hint(batches, -1)
+        it = _iter_batches(batches)
+        if n < 0:
+            drained = list(it)
+            n, it = len(drained), iter(drained)
+
+        done, want_key0 = set(), None
+        if self.journal is not None and self.resume:
+            rec_meta = self.journal.load()
+            if rec_meta is not None:
+                rec_n = int(rec_meta["queue"]["n_items"])
+                if rec_n != n:
+                    raise ValueError(
+                        f"journal records a {rec_n}-item stream; the "
+                        f"resume stream has {n} items: refusing to mix "
+                        f"runs")
+                done = set(rec_meta["queue"]["done"])
+                want_key0 = rec_meta.get("stream_key0")
+        queue = WorkQueue.from_state({"n_items": n, "done": sorted(done)})
+        order = [p for p in range(n) if p not in done]
+        emit_idx = 0
+        key0 = None                       # stream identity: first batch key
+        results: dict[int, BatchResult] = {}
+        misses = []                       # [pos, key, wid, chunks, extra]
+
+        def emit_ready():
+            """Completion-gated hand-off of the ready stream-order prefix."""
+            nonlocal emit_idx
+            while emit_idx < len(order) and order[emit_idx] in results:
+                pos = order[emit_idx]
+                emit_idx += 1
+                queue.complete([pos])
+                if self.journal is not None:
+                    self.journal.record(queue, meta={"stream_key0": key0})
+                yield results.pop(pos)
+
+        for pos, (wid, chunks, extra) in enumerate(it):
+            probe = pos not in done and self.store is not None
+            if probe or (pos == 0 and self.journal is not None):
+                x = _host_f32(chunks)
+                key = self._key(x)
+                if pos == 0:
+                    key0 = key
+                    if want_key0 is not None and want_key0 != key0:
+                        raise ValueError(
+                            "journal records a stream with different "
+                            "content (first-batch key mismatch): refusing "
+                            "to mix runs")
+            if pos in done:
+                continue                  # the killed run already emitted it
+            if not probe:                 # uncached: everything is a miss
+                misses.append([pos, None, wid, chunks, extra])
+                continue
+            hit = self.store.get(key, src_bytes=x.nbytes)
+            if hit is not None:
+                results[pos] = self._result(*hit, wid=wid, extra=extra)
+                yield from emit_ready()   # warm prefixes flow immediately
+            else:
+                misses.append([pos, key, wid, x, extra])
+
+        if misses:
+            def miss_stream():
+                for i, m in enumerate(misses):
+                    item = (i, (m[3], m[4]))
+                    m[3] = None           # the inner plan owns the bytes now
+                    yield item
+
+            for res in self.inner.run(SizedIter(miss_stream(),
+                                                 len(misses))):
+                pos, key, wid, _, extra = misses[res.wid]
+                if self.store is not None:
+                    self.store.put_payload(key, pack_result(res))
+                results[pos] = replace(res, wid=wid, labels=extra)
+                yield from emit_ready()
+        yield from emit_ready()
+        assert emit_idx == len(order), "inner plan dropped work ids"
+
+
+PLANS = {p.name: p for p in (FusedPlan, TwoPhasePlan, StreamingPlan,
+                             AsyncPlan, CachedPlan)}
 
 
 class Preprocessor:
@@ -368,3 +592,9 @@ class Preprocessor:
     def run(self, batches):
         """Iterate BatchResults over a batch stream."""
         return self.plan.run(batches)
+
+    def detect(self, audio) -> PipelineOutput:
+        """The detection phase alone, on the facade's device: every plan
+        runs it the same way. For a graph without a removal point this is
+        the whole chain (`PipelineGraph.detection`)."""
+        return self.plan.detect(audio)

@@ -1,9 +1,44 @@
 """Survivor bookkeeping between the two phases: the host reads only the
 keep mask and answers with a padded index vector; the survivor tail
-gathers the rows on the device."""
+gathers the rows on the device. Also the paper's load-balance metrics
+(files per slave, Figs 14-16): `shard_load` and `balance_stats`."""
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def compact(chunks, keep):
+    """Pack surviving chunks to the front, in their order (a stable sort
+    on ~keep). chunks: (N, ...); keep: (N,) bool. Returns (packed chunks,
+    packed keep, survivor count)."""
+    order = torch.argsort((~keep).to(torch.uint8), stable=True)
+    return chunks[order], keep[order], keep.sum()
+
+
+def shard_load(keep, n_shards):
+    """Surviving chunks per shard when N chunks are cut into `n_shards`
+    equal slices; an N that `n_shards` does not divide is padded with
+    removed chunks, so the last shard holds fewer real ones."""
+    pad = (-keep.shape[0]) % n_shards
+    if pad:
+        keep = torch.cat([keep, torch.zeros(pad, dtype=keep.dtype,
+                                            device=keep.device)])
+    return keep.reshape(n_shards, -1).sum(dim=1)
+
+
+def balance_stats(keep, n_shards):
+    """Load balance over `n_shards`: 'imbalance' (max / mean survivors per
+    shard) where detection left them, and 'imbalance_after_compact' when
+    the survivors are packed and re-sliced ceil(n / n_shards) a shard."""
+    loads = shard_load(keep, n_shards)
+    mean = loads.float().mean()
+    imb = loads.max() / torch.clamp_min(mean, 1e-9)
+    n = keep.sum()
+    per_shard_after = torch.ceil(n / n_shards)
+    imb_after = per_shard_after / torch.clamp_min(n / n_shards, 1e-9)
+    return {"loads": loads, "imbalance": imb,
+            "imbalance_after_compact": imb_after}
 
 
 def quantize_survivors(n, cap, pad_multiple=1, bucket="pow2"):
@@ -40,6 +75,16 @@ def survivor_indices(keep_np, pad_multiple=1, bucket="pow2"):
     out = np.full(size, keep_np.size, np.int32)
     out[:n] = idx
     return out, n
+
+
+def survivor_batch(chunks_np, keep_np, pad_multiple):
+    """Host-side re-batching of the survivors, padded with zero rows to a
+    multiple of `pad_multiple`. Returns (batch, n_real); (None, 0) when
+    nothing survived."""
+    idx = np.nonzero(keep_np)[0]
+    if len(idx) == 0:
+        return None, 0
+    return pad_batch(chunks_np[idx], pad_multiple)
 
 
 def pad_batch(rows_np, pad_multiple):

@@ -15,6 +15,9 @@ KERNELS = {
     "stft_dft": _stft.KERNEL,
     "mmse_stsa": _mmse.KERNEL,
     "fused_tail": _fused.KERNEL,
+    # the same two entry points at the windows that take the direct DFT
+    "stft_dft_generic": _stft.DFT_KERNEL,
+    "fused_tail_generic": _fused.DFT_KERNEL,
 }
 
 

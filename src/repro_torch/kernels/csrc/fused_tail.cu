@@ -41,7 +41,20 @@
 // Shared memory at W = 256: 64 KB of ring, 64 KB of FFT buffers, 34 KB of
 // stage buffers (with the high-pass 35 KB, and 0.5 KB of taps), 3 KB of
 // table; one block per SM, which is all one row needs.
+//
+// Every other even window (4 to 510; the reference's Pallas kernel takes
+// up to 382) goes to fused_tail_dft_kernel: the same function through the
+// direct DFT of dft.cuh, the simple version, not warp-specialised. One
+// block of 256 threads per survivor row walks its frames in chunks of
+// DFT_FRAMES: all threads stage the chunk's span (with the high-pass, its
+// T-1 sample halo too) and filter it in shared memory, window the frames,
+// and compute every (frame, bin) of the chunk into shared memory; then one
+// thread per bin carries the recurrence through the chunk with mmse_step,
+// as both other kernels do. Noise frames beyond the first chunk take a
+// prologue pass over the chunks that hold them, which the main loop then
+// computes again.
 #include "common.cuh"
+#include "dft.cuh"
 #include "fft.cuh"
 #include "mmse.cuh"
 
@@ -232,6 +245,127 @@ fused_tail_kernel(const float* __restrict__ wave, const int* __restrict__ idx,
   }
 }
 
+constexpr int TAIL_DFT_THREADS = 256;   // at least K = W/2 + 1 <= 256
+
+// Shared memory, in floats, of fused_tail_dft_kernel at window W with T
+// taps (0: no high-pass).
+__host__ __device__ constexpr int tail_dft_span(int W) {
+  return (DFT_FRAMES - 1) * (W / 2) + W;
+}
+static size_t tail_dft_floats(int W, int T) {
+  const int K = W / 2 + 1;
+  return 3 * W + 2 * DFT_FRAMES * K + DFT_FRAMES * dft_stride(W) +
+         tail_dft_span(W) + (T > 0 ? T - 1 + tail_dft_span(W) : 0) + T;
+}
+
+__global__ void __launch_bounds__(TAIL_DFT_THREADS)
+fused_tail_dft_kernel(const float* __restrict__ wave,
+                      const int* __restrict__ idx,
+                      const float* __restrict__ tables,
+                      const float* __restrict__ taps,
+                      float* __restrict__ out, int B, long long S, int Fv,
+                      int W, int T, int noise_frames, float alpha,
+                      float gain_floor) {
+  extern __shared__ float4 smem4[];
+  const int K = W / 2 + 1, hop = W / 2;
+  const int halo = T > 0 ? T - 1 : 0;
+  float* tab_s = reinterpret_cast<float*>(smem4);
+  const float2* tw = reinterpret_cast<const float2*>(tab_s);
+  const float* win = tab_s + 2 * W;
+  // 3W floats before it: even, so 8-byte aligned
+  float2* spec = reinterpret_cast<float2*>(tab_s + 3 * W);
+  float* xw = reinterpret_cast<float*>(spec + DFT_FRAMES * K);
+  float* raw = xw + DFT_FRAMES * dft_stride(W);   // span + halo
+  float* filt = raw + tail_dft_span(W) + halo;    // T > 0 only
+  float* taps_s = filt + (T > 0 ? tail_dft_span(W) : 0);
+
+  const int t = threadIdx.x;
+  const int src = idx[blockIdx.x];
+  float2* out_r = reinterpret_cast<float2*>(out) +
+                  static_cast<long long>(blockIdx.x) * Fv * K;
+  if (src < 0 || src >= B) {  // pad slot: exact zeros, like a fill gather
+    for (long long i = t; i < static_cast<long long>(Fv) * K;
+         i += TAIL_DFT_THREADS)
+      out_r[i] = make_float2(0.f, 0.f);
+    return;
+  }
+  for (int i = t; i < 3 * W; i += TAIL_DFT_THREADS) tab_s[i] = tables[i];
+  for (int k = t; k < T; k += TAIL_DFT_THREADS) taps_s[k] = taps[k];
+
+  const float* xr = wave + static_cast<long long>(src) * S;
+  const int nf = min(noise_frames, Fv);
+  const int n_pre =
+      nf > DFT_FRAMES ? (nf + DFT_FRAMES - 1) / DFT_FRAMES : 0;
+  const int n_chunks = n_pre + (Fv + DFT_FRAMES - 1) / DFT_FRAMES;
+  float sum = 0.f, inv_lam = 0.f;
+  MmseCarry a2 = mmse_carry_init(alpha);
+  for (int c = 0; c < n_chunks; ++c) {
+    const int f0 = (c < n_pre ? c : c - n_pre) * DFT_FRAMES;
+    const int n_f = min(DFT_FRAMES, Fv - f0);
+    const int len = (n_f - 1) * hop + W;
+    const long long s0 = static_cast<long long>(f0) * hop - halo;
+    __syncthreads();   // the last chunk's spectrum is consumed
+    for (int j = t; j < len + halo; j += TAIL_DFT_THREADS) {
+      const long long q = s0 + j;
+      raw[j] = q >= 0 && q < S ? xr[q] : 0.f;
+    }
+    __syncthreads();
+    const float* frames = raw;
+    if (T > 0) {  // causal high-pass: filt[j] = sum_k taps[k] raw[j+T-1-k]
+      for (int j = t; j < len; j += TAIL_DFT_THREADS) {
+        float acc = 0.f;
+        for (int k = 0; k < T; ++k)
+          acc = fmaf(taps_s[k], raw[j + halo - k], acc);
+        filt[j] = acc;
+      }
+      __syncthreads();
+      frames = filt;
+    }
+    dft_stage_frames<TAIL_DFT_THREADS>(frames, win, xw, n_f, W, hop, t);
+    __syncthreads();
+    const int lane = t & 31;
+    if (lane < n_f)
+      for (int k = t >> 5; k < K; k += TAIL_DFT_THREADS / 32)
+        spec[lane * K + k] = dft_bin(xw + lane * dft_stride(W), tw, W, k);
+    __syncthreads();
+    if (t >= K) continue;
+    if (c < n_pre || (n_pre == 0 && c == 0)) {   // noise frames
+      const int n_noise = min(n_f, nf - f0);
+      for (int f = 0; f < n_noise; ++f) {
+        const float2 v = spec[f * K + t];
+        sum += v.x * v.x + v.y * v.y;
+      }
+      if (c == max(n_pre - 1, 0)) inv_lam = 1.f / fmaxf(sum / nf, 1e-10f);
+    }
+    if (c >= n_pre) {
+      float2* o = out_r + static_cast<long long>(f0) * K + t;
+      for (int f = 0; f < n_f; ++f) {
+        const float2 v = spec[f * K + t];
+        const float g = fmaxf(
+            mmse_step(v.x * v.x + v.y * v.y, inv_lam, alpha, a2),
+            gain_floor);
+        o[static_cast<long long>(f) * K] = make_float2(v.x * g, v.y * g);
+      }
+    }
+  }
+}
+
+static int launch_fused_tail_dft(const float* wave, const int* idx,
+                                 const float* tables, const float* taps,
+                                 float* out, int B, long long S, int R,
+                                 int Fv, int W, int T, int noise_frames,
+                                 float alpha, float gain_floor,
+                                 cudaStream_t stream) {
+  if (W < 4 || W > 510 || W % 2) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * tail_dft_floats(W, T);
+  cudaError_t err = allow_shared_bytes(fused_tail_dft_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_tail_dft_kernel<<<R, TAIL_DFT_THREADS, smem, stream>>>(
+      wave, idx, tables, taps, out, B, S, Fv, W, T, noise_frames, alpha,
+      gain_floor);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int W>
 static int launch_fused_tail(const float* wave, const int* idx,
                              const float* tables, const float* taps,
@@ -255,7 +389,8 @@ static int launch_fused_tail(const float* wave, const int* idx,
 // wave: (B, S) f32; idx: (R,) int32; tables: fft_tables.tables(window);
 // taps: (T,) f32, or null with T = 0 for no high-pass; out: (R, Fv, K, 2)
 // f32, K = window/2 + 1. Contiguous, on the current device; hop = window/2,
-// window 128, 256 or 512, noise_frames >= 1. Returns a cudaError_t code.
+// window even, 4 to 512 (128, 256 and 512 by the FFT, the others by the
+// DFT), noise_frames >= 1. Returns a cudaError_t code.
 extern "C" int fused_tail_forward(const float* wave, const int* idx,
                                   const float* tables, const float* taps,
                                   float* out, int B, long long S, int R,
@@ -279,6 +414,8 @@ extern "C" int fused_tail_forward(const float* wave, const int* idx,
                                     Fv, T, noise_frames, alpha, gain_floor,
                                     s);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_fused_tail_dft(wave, idx, tables, taps, out, B, S, R, Fv,
+                                   window, T, noise_frames, alpha,
+                                   gain_floor, s);
   }
 }

@@ -3,7 +3,11 @@
 `fused_tail_spectrum` dispatches by the device of `wave`: a CPU tensor runs
 `ref.fused_tail_spectrum_ref`, a CUDA tensor launches `csrc/fused_tail.cu`
 (gather + optional high-pass + STFT + noise PSD + MMSE gain in one pass).
-`finish` is the irfft overlap-add outside the kernel, as in the reference.
+It takes the STFT kernel's framing (`fft_tables.check_geometry`): windows
+of 128, 256 and 512 run the warp-specialised FFT kernel (`KERNEL`), the
+other even windows up to 510 the direct-DFT kernel (`DFT_KERNEL`), one
+entry point with two launch counts. `finish` is the irfft overlap-add
+outside the kernel, as in the reference.
 """
 from __future__ import annotations
 
@@ -19,11 +23,12 @@ from repro_torch.kernels.stft_dft import fft_tables as FT
 from repro_torch.kernels.stft_dft import ref as SR
 from repro_torch.kernels.stft_dft.ops import tables_on
 
-KERNEL = CudaKernel("fused_tail", "fused_tail_forward", [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.c_float])
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_float, ctypes.c_float]
+KERNEL = CudaKernel("fused_tail", "fused_tail_forward", _ARGTYPES)
+DFT_KERNEL = CudaKernel("fused_tail", "fused_tail_forward", _ARGTYPES)
 
 
 def fused_tail_spectrum_cuda(wave, idx, cfg, hpf=False):
@@ -52,7 +57,8 @@ def fused_tail_spectrum_cuda(wave, idx, cfg, hpf=False):
                        (cfg.hpf_cutoff_hz, cfg.target_rate_hz, cfg.hpf_taps))
         T = taps.shape[0]
     out = torch.empty((rows, Fv, K, 2), dtype=torch.float32, device=dev)
-    KERNEL(dev, wave.data_ptr(), idx.data_ptr(), tables.data_ptr(),
+    kernel = KERNEL if FT.uses_fft(window) else DFT_KERNEL
+    kernel(dev, wave.data_ptr(), idx.data_ptr(), tables.data_ptr(),
            None if taps is None else taps.data_ptr(), out.data_ptr(), B, S,
            rows, Fv, window, T, cfg.noise_est_frames,
            float(cfg.mmse_alpha), float(cfg.mmse_gain_floor))

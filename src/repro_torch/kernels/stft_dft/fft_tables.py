@@ -1,10 +1,14 @@
-"""Host-side tables and geometry of the shared-memory real FFT
-(`csrc/fft.cuh`) that the STFT and fused-tail kernels run.
+"""Host-side tables and geometry of the transforms that the STFT and
+fused-tail kernels run: the shared-memory real FFT (`csrc/fft.cuh`) at a
+window of 128, 256 or 512 samples, and the direct windowed DFT
+(`csrc/dft.cuh`) at every other even window up to 510.
 
 The tables are built in float64 by numpy and cast to f32 once, so the
 kernels spend no `sincosf` (and its error) on them: `tables(W)` is
 `[re tw[0], im tw[0], ..., re tw[W-1], im tw[W-1], w[0], ..., w[W-1]]`
 with `tw[t] = exp(-2 pi i t / W)` and `w` the reference's Hamming window.
+The DFT reads the same table: bin k of a frame is
+`sum_n w[n] x[n] tw[(n k) mod W]`.
 """
 from __future__ import annotations
 
@@ -12,16 +16,24 @@ import numpy as np
 
 from repro_torch.kernels.stft_dft.ref import hamming
 
-WINDOWS = (128, 256, 512)      # the kernels' template instances
+FFT_WINDOWS = (128, 256, 512)  # fft.cuh's template instances
+MAX_WINDOW = 512
+
+
+def uses_fft(window):
+    """True where the kernels run the FFT of fft.cuh, False where they run
+    the direct DFT of dft.cuh."""
+    return window in FFT_WINDOWS
 
 
 def check_geometry(window, hop):
-    """Raise `ValueError` unless the kernels take this framing: a window of
-    128, 256 or 512 samples and hop = window / 2 (the reference's kernel
-    asserts the same 50% overlap)."""
-    if window not in WINDOWS or hop * 2 != window:
-        raise ValueError(f"the FFT kernels take window in {WINDOWS} and "
-                         f"hop = window/2, got window={window}, hop={hop}")
+    """Raise `ValueError` unless the kernels take this framing: an even
+    window of 4 to 512 samples and hop = window / 2 (the reference's
+    kernel asserts the same 50% overlap)."""
+    if window % 2 or not 4 <= window <= MAX_WINDOW or hop * 2 != window:
+        raise ValueError(f"the STFT kernels take an even window of 4 to "
+                         f"{MAX_WINDOW} samples and hop = window/2, got "
+                         f"window={window}, hop={hop}")
 
 
 def twiddles(window):

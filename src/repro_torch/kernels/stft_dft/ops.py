@@ -3,8 +3,10 @@
 Dispatch goes by the tensor's device: a CPU tensor runs `ref.stft_ref`
 (`torch.fft.rfft`), a CUDA tensor launches `csrc/stft.cu`. The kernel
 reads overlapping frames straight from the row, so it needs no padding;
-it takes hop = window/2 with a window of 128, 256 or 512 samples and
-raises `ValueError` on anything else.
+it takes hop = window/2 with an even window of 4 to 512 samples
+(`fft_tables.check_geometry`) and raises `ValueError` on anything else.
+Windows of 128, 256 and 512 run the FFT (`KERNEL`), the others the direct
+DFT (`DFT_KERNEL`): one entry point, two launch counts.
 """
 from __future__ import annotations
 
@@ -17,14 +19,15 @@ from repro_torch.kernels._build import MAX_GRID_Y, CudaKernel, require_cuda
 from repro_torch.kernels.stft_dft import fft_tables as FT
 from repro_torch.kernels.stft_dft import ref as R
 
-KERNEL = CudaKernel("stft", "stft_forward", [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int])
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+KERNEL = CudaKernel("stft", "stft_forward", _ARGTYPES)
+DFT_KERNEL = CudaKernel("stft", "stft_forward", _ARGTYPES)
 
 
 @functools.lru_cache(maxsize=16)
 def tables_on(device, window):
-    """The FFT kernels' twiddle and window table (`fft_tables.tables`) on
+    """The kernels' twiddle and window table (`fft_tables.tables`) on
     `device`."""
     return torch.as_tensor(FT.tables(window), device=device)
 
@@ -42,9 +45,10 @@ def stft_cuda(x, window=256, hop=128):
     if B < 1 or F < 1:
         raise ValueError(f"stft_cuda: unsupported B={B}, S={S}")
     out = torch.empty((B, F, K, 2), dtype=torch.float32, device=dev)
+    kernel = KERNEL if FT.uses_fft(window) else DFT_KERNEL
     # rows go on the grid's y axis: one launch per block of MAX_GRID_Y rows
     for r0 in range(0, B, MAX_GRID_Y):
-        KERNEL(dev, x[r0].data_ptr(), tables.data_ptr(), out[r0].data_ptr(),
+        kernel(dev, x[r0].data_ptr(), tables.data_ptr(), out[r0].data_ptr(),
                min(MAX_GRID_Y, B - r0), S, F, window)
     return torch.view_as_complex(out)
 

@@ -1,19 +1,26 @@
 """End-to-end entry point: preprocess a stream of synthetic bird-acoustic
-long chunks through a two-phase-family plan, on the CUDA card by default.
+long chunks through any plan of `PLANS`, on the CUDA card by default.
 
   PYTHONPATH=src python -m repro_torch.launch.preprocess --minutes 8
   PYTHONPATH=src python -m repro_torch.launch.preprocess --plan async --depth 4
+  PYTHONPATH=src python -m repro_torch.launch.preprocess --plan fused
+  PYTHONPATH=src python -m repro_torch.launch.preprocess --store /tmp/st
   PYTHONPATH=src python -m repro_torch.launch.preprocess --device cpu
 
-Reports throughput in MB/s of source audio (the paper's headline metric)
-and the chunks kept; plans with a pipeline window also report their
-per-stage host times (dispatch / mask readback / compact / tail / emit) and
-the overlapped dispatches. `--plan` choices come from the `PLANS` registry;
-`--depth` is the async plan's dispatch-ahead window (default 4 here, as in
-the reference's launcher) and `--bucket` the survivor-count quantization of
-the tail (default: the plan's own, pow2 for async, linear elsewhere). The
-batches are synthesised on the host as the loop asks for them, and that
-time is inside the reported wall time.
+Reports throughput in MB/s of source audio (the paper's headline metric),
+the chunks kept and the survivor load imbalance over the card count;
+plans with a pipeline window also report their per-stage host times
+(dispatch / mask readback / compact / tail / emit) and the overlapped
+dispatches. `--depth` is the async plan's dispatch-ahead window (default
+4 here, as in the reference's launcher) and `--bucket` the survivor-count
+quantization of the tail (default: the plan's own, pow2 for async, linear
+elsewhere). `--store DIR` wraps the chosen plan in `CachedPlan` with a
+content-addressed store and a run journal in DIR: a second run over the
+same stream is all hits; `--resume` continues a killed `--store` run from
+its journal, each batch emitted once across the kill; `--store-max-bytes`
+evicts the least recently hit entries after the run. The batches are
+synthesised on the host as the loop asks for them, and that time is
+inside the reported wall time.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ import time
 import torch
 
 from repro_torch.configs import SERF_AUDIO
-from repro_torch.core.plans import PLANS, Preprocessor
+from repro_torch.core.plans import PLANS, Preprocessor, SizedIter
+from repro_torch.core.scheduler import balance_stats
 from repro_torch.data.loader import audio_batch_maker
 
 _FRAC_KEYS = ("frac_rain", "frac_silence", "frac_kept", "frac_cicada15")
@@ -44,7 +52,20 @@ def main(argv=None):
                          "the plan's own, pow2 for async, linear elsewhere)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default; fails without a card) or cpu")
+    ap.add_argument("--store", default=None, metavar="DIR",
+                    help="content-addressed result store: wraps the chosen "
+                         "plan in CachedPlan + a resume journal")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume a killed --store run from its journal "
+                         "(exactly-once emission across the restart)")
+    ap.add_argument("--store-max-bytes", type=int, default=None,
+                    help="after the run, evict least-recently-hit store "
+                         "entries until the payload fits this budget")
     args = ap.parse_args(argv)
+    if args.resume and not args.store:
+        ap.error("--resume requires --store")
+    if args.store_max_bytes is not None and not args.store:
+        ap.error("--store-max-bytes requires --store")
 
     plan_kwargs = {}
     if args.plan == "async":
@@ -53,15 +74,27 @@ def main(argv=None):
         ap.error(f"--depth is the async plan's dispatch-ahead window; "
                  f"plan '{args.plan}' has no use for it")
     if args.bucket is not None:
+        if args.plan not in ("two_phase", "streaming", "async", "cached"):
+            ap.error(f"--bucket selects the tail-shape quantization of "
+                     f"the two-phase-family plans; plan '{args.plan}' "
+                     f"does not take it")
         plan_kwargs["bucket"] = args.bucket
-    pre = Preprocessor(SERF_AUDIO, plan=args.plan, device=args.device,
+    plan = args.plan
+    if args.store:
+        inner = "two_phase" if plan == "cached" else plan
+        plan, plan_kwargs = "cached", {
+            "inner": inner, "store": args.store, "journal": True,
+            "resume": args.resume, **plan_kwargs}
+    pre = Preprocessor(SERF_AUDIO, plan=plan, device=args.device,
                        **plan_kwargs)
     n_batches = max(1, int(round(args.minutes / args.batch_long_chunks)))
     make = audio_batch_maker(args.seed, args.batch_long_chunks)
-    stream = ((wid, make(wid)) for wid in range(n_batches))
+    stream = SizedIter(((wid, make(wid)) for wid in range(n_batches)),
+                       n_batches)
 
     tot_bytes = tot_kept = tot_chunks = 0
     agg = {k: 0.0 for k in _FRAC_KEYS}
+    last_keep = None
     timings = []
     t0 = time.time()
     for res in pre.run(stream):
@@ -71,10 +104,17 @@ def main(argv=None):
         tot_bytes += res.src_bytes
         tot_kept += res.n_kept
         tot_chunks += int(w)
-        timings.append(res.timings)
+        last_keep = res.det.keep
+        if res.timings is not None:
+            timings.append(res.timings)
     if pre.device.type == "cuda":
         torch.cuda.synchronize(pre.device)
     dt = time.time() - t0
+    cached = pre.plan if plan == "cached" else None
+    if tot_chunks == 0:
+        print("nothing left to emit: the journal shows every chunk of this "
+              "stream was already emitted before the kill")
+        return 0
     frac = {k: agg[k] / tot_chunks for k in _FRAC_KEYS}
     where = (torch.cuda.get_device_name(pre.device)
              if pre.device.type == "cuda" else "cpu")
@@ -84,7 +124,12 @@ def main(argv=None):
           f"(rain {frac['frac_rain']:.1%}, "
           f"silence {frac['frac_silence']:.1%}, "
           f"cicada-filtered {frac['frac_cicada15']:.1%})")
-    if "in_flight" in timings[0]:
+    n_cards = torch.cuda.device_count() if pre.device.type == "cuda" else 1
+    bs = balance_stats(last_keep, n_cards)
+    print(f"survivor load imbalance (max/mean): "
+          f"{float(bs['imbalance']):.3f} -> "
+          f"{float(bs['imbalance_after_compact']):.3f} after compaction")
+    if timings and "in_flight" in timings[0]:
         n = len(timings)
         print("pipeline: " + "  ".join(
             f"{k} {1e3 * sum(t[k + '_s'] for t in timings) / n:.2f}ms"
@@ -93,6 +138,14 @@ def main(argv=None):
               f"{sum(1 for t in timings if t['in_flight'] >= 2)}/{n} "
               f"overlapped dispatches (max in-flight "
               f"{max(t['in_flight'] for t in timings)})")
+    if cached is not None and cached.stats is not None:
+        print(f"store: {cached.stats}")
+    if args.store_max_bytes is not None:
+        rep = cached.store.gc(args.store_max_bytes)
+        print(f"store gc: {rep['evicted']} entries / "
+              f"{rep['bytes_freed'] / 2**20:.1f} MB evicted -> "
+              f"{rep['entries_after']} entries / "
+              f"{rep['bytes_after'] / 2**20:.1f} MB retained")
     return tot_kept
 
 

@@ -25,7 +25,8 @@ from repro.kernels import backend  # noqa: E402
 from repro_torch.configs import SERF_AUDIO as cfg  # noqa: E402
 from repro_torch.core import scheduler as SCHED  # noqa: E402
 from repro_torch.core.plans import (  # noqa: E402
-    PLANS, TIMINGS_CAP, AsyncPlan, Preprocessor, StreamingPlan, TwoPhasePlan)
+    PLANS, TIMINGS_CAP, AsyncPlan, CachedPlan, FusedPlan, Preprocessor,
+    StreamingPlan, TwoPhasePlan)
 from repro_torch.data.loader import audio_batch_maker  # noqa: E402
 
 _MASKS = ("keep", "rain", "silence", "cicada15")
@@ -184,8 +185,9 @@ def test_async_in_order_exactly_once_any_depth(two_phase_22, depth):
 
 
 def test_plans_registered_with_reference_defaults():
-    assert PLANS == {"two_phase": TwoPhasePlan, "streaming": StreamingPlan,
-                     "async": AsyncPlan}
+    assert PLANS == {"fused": FusedPlan, "two_phase": TwoPhasePlan,
+                     "streaming": StreamingPlan, "async": AsyncPlan,
+                     "cached": CachedPlan}
     stream_plan = Preprocessor(cfg, plan="streaming", device="cpu").plan
     assert (stream_plan.depth, stream_plan.emit_buffer, stream_plan.bucket,
             stream_plan.donate) == (1, 0, "linear", False)

@@ -155,8 +155,45 @@ def test_fused_tail_kernel_one_row_and_all_pads(card, idx):
     _close(got, TR.fused_tail_spectrum_ref(wave, idx, cfg), 2e-4, 2e-4)
 
 
-@pytest.mark.parametrize("window,hop", [(256, 64), (256, 256), (200, 100),
-                                        (384, 192), (1024, 512)])
+@pytest.mark.parametrize("window", [64, 200, 382])
+@pytest.mark.parametrize("B,F", [(1, 31), (3, 33), (2, 70)])
+def test_stft_dft_kernel(card, window, B, F):
+    """The direct-DFT path of the STFT kernel: frame counts one below and
+    one above a 32-frame tile and a part tile, with a part frame left
+    over; it counts on `stft_dft_generic`, not `stft_dft`."""
+    hop = window // 2
+    S = (F - 1) * hop + window + hop // 2
+    x = torch.randn(B, S, device=card) * 0.3
+    kernels.reset_launches()
+    got = SO.stft_cuda(x, window, hop)
+    assert got.shape == (B, F, hop + 1)
+    _close(got, SR.stft_ref(x, window, hop), 2e-4, 2e-4)
+    assert kernels.launches()["stft_dft_generic"] == 1
+    assert kernels.launches()["stft_dft"] == 0
+
+
+@pytest.mark.parametrize("window", [64, 200, 382])
+@pytest.mark.parametrize("hpf", [False, True])
+@pytest.mark.parametrize("noise_frames", [16, 100])
+def test_fused_tail_dft_kernel(card, window, hpf, noise_frames):
+    """The direct-DFT fused tail against its plain version at 2e-4, with
+    pad rows (one past the end, one negative) exactly zero; 100 noise
+    frames reach past the first 32-frame chunk."""
+    tcfg = dataclasses.replace(cfg, stft_window=window, stft_hop=window // 2,
+                               noise_est_frames=noise_frames)
+    wave = torch.randn(5, 30_000, device=card) * 0.3
+    idx = torch.tensor([3, 0, 5, 4, -1, 1], dtype=torch.int32, device=card)
+    kernels.reset_launches()
+    got = TO.fused_tail_spectrum_cuda(wave, idx, tcfg, hpf)
+    assert kernels.launches()["fused_tail_generic"] == 1
+    assert kernels.launches()["fused_tail"] == 0
+    _close(got, TR.fused_tail_spectrum_ref(wave, idx, tcfg, hpf), 2e-4, 2e-4)
+    assert not torch.view_as_real(got[2]).any()
+    assert not torch.view_as_real(got[4]).any()
+
+
+@pytest.mark.parametrize("window,hop", [(256, 64), (256, 256), (255, 127),
+                                        (514, 257), (1024, 512)])
 def test_fft_wrappers_reject_other_framing(card, window, hop):
     x = torch.randn(2, 5_000, device=card)
     with pytest.raises(ValueError):
@@ -176,7 +213,9 @@ def test_wrappers_dispatch_cuda_tensors_to_kernels(card):
     TO.fused_tail(x, torch.tensor([1, 2], dtype=torch.int32, device=card),
                   cfg)
     assert kernels.launches() == {"fir_hpf": 1, "stft_dft": 1,
-                                  "mmse_stsa": 1, "fused_tail": 1}
+                                  "mmse_stsa": 1, "fused_tail": 1,
+                                  "stft_dft_generic": 0,
+                                  "fused_tail_generic": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
@@ -301,3 +340,49 @@ def test_cuda_tensor_batch_enters_without_a_copy(card, plan):
     _assert_same([got], [want])
     if pre.plan.staging:
         assert len(pre.plan.staging.log) == staged      # no upload
+
+
+def test_fused_plan_on_card_matches_staged_two_phase(card):
+    """The no-early-exit plan: all its rows through the STFT and MMSE
+    kernels; masks equal to two_phase's, kept rows within the reference's
+    plan-equivalence tolerance of the staged survivors."""
+    stream = _stream(2)
+    want = list(Preprocessor(cfg, plan="two_phase", fuse_tail=False)
+                .run(stream))
+    kernels.reset_launches()
+    got = list(Preprocessor(cfg, plan="fused").run(stream))
+    counts = kernels.launches()
+    assert all(counts[n] > 0 for n in ("fir_hpf", "stft_dft", "mmse_stsa"))
+    assert counts["fused_tail"] == 0
+    assert [r.wid for r in got] == [r.wid for r in want]
+    for r, w in zip(got, want):
+        for m in ("keep", "rain", "silence", "cicada15"):
+            assert torch.equal(getattr(r.det, m).cpu(),
+                               getattr(w.det, m).cpu()), m
+        assert r.cleaned.shape == w.cleaned.shape
+        np.testing.assert_allclose(r.cleaned, w.cleaned, rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_cached_plan_on_card_cold_then_warm(card, tmp_path):
+    """Cold: every batch misses and runs the fused two_phase path; warm:
+    every batch hits and no kernel launches; both bitwise equal to the
+    uncached plan. An entry the CPU computed is never served to the card,
+    nor the card's to the CPU."""
+    stream = _stream(2)
+    want = list(Preprocessor(cfg, plan="two_phase").run(stream))
+    cold = Preprocessor(cfg, plan="cached", store=tmp_path)
+    kernels.reset_launches()
+    _assert_same(list(cold.run(stream)), want)
+    assert kernels.launches()["fused_tail"] == 2
+    assert (cold.plan.stats.misses, cold.plan.stats.hits) == (2, 0)
+    warm = Preprocessor(cfg, plan="cached", store=tmp_path)
+    kernels.reset_launches()
+    got = list(warm.run(stream))
+    assert not any(kernels.launches().values())
+    assert (warm.plan.stats.misses, warm.plan.stats.hits) == (0, 2)
+    _assert_same(got, want)
+    assert all(not r.det.wave5.any() for r in got)
+    on_cpu = Preprocessor(cfg, plan="cached", store=tmp_path, device="cpu")
+    list(on_cpu.run(stream[:1]))
+    assert (on_cpu.plan.stats.misses, on_cpu.plan.stats.hits) == (1, 0)

@@ -1,9 +1,11 @@
 """The shared-memory real FFT of the STFT and fused-tail kernels
 (`csrc/fft.cuh`), emulated on the CPU: the same host tables, pass order,
 butterfly index maps and even/odd split, in f32, against `torch.fft.rfft`
-of the windowed frames. A CUDA kernel has no CPU mode, so this is how an
-index fault shows before the kernel meets the card; the kernel itself is
-held against its plain version on the card (tests/test_torch_cuda.py)."""
+of the windowed frames; and the direct DFT of the other windows
+(`csrc/dft.cuh`): its frame staging and `(n k) mod W` table walk. A CUDA
+kernel has no CPU mode, so this is how an index fault shows before the
+kernel meets the card; the kernels themselves are held against their
+plain versions on the card (tests/test_torch_cuda.py)."""
 import numpy as np
 import pytest
 import torch
@@ -90,8 +92,62 @@ def test_tables_layout(window):
                                   SR.hamming(window).astype(np.float32))
 
 
-@pytest.mark.parametrize("window,hop", [(256, 64), (256, 256), (200, 100),
-                                        (1024, 512), (64, 32)])
+@pytest.mark.parametrize("window,hop", [(256, 64), (256, 256), (514, 257),
+                                        (1024, 512), (255, 127)])
 def test_geometry_the_kernels_refuse(window, hop):
     with pytest.raises(ValueError):
         FT.check_geometry(window, hop)
+
+
+@pytest.mark.parametrize("window,hop", [(64, 32), (200, 100), (382, 191),
+                                        (384, 192)])
+def test_geometry_the_kernels_take(window, hop):
+    FT.check_geometry(window, hop)
+    assert not FT.uses_fft(window)
+
+
+def emulate_dft(x, window, n_frames):
+    """Frames 0 .. n_frames-1 of the row x (numpy f32) -> (n_frames,
+    window/2 + 1) complex128, computed as `dft_stage_frames` and `dft_bin`
+    compute them: windowed frames at a stride of window + 1 floats, then
+    for each bin a walk of the twiddle index t = (n k) mod window, adding k
+    and wrapping once, with f32 sums in the order of n."""
+    W, hop, K = window, window // 2, window // 2 + 1
+    tab = FT.tables(W)
+    tw_re, tw_im, win = tab[0:2 * W:2], tab[1:2 * W:2], tab[2 * W:]
+    xw = np.zeros(n_frames * (W + 1), np.float32)
+    for i in range(n_frames * W):
+        f, n = divmod(i, W)
+        xw[f * (W + 1) + n] = win[n] * x[f * hop + n]
+    out = np.empty((n_frames, K), np.complex128)
+    n = np.arange(W)
+    for k in range(K):
+        t = np.empty(W, np.int64)
+        acc = 0
+        for j in range(W):                 # the kernel's walk, step by step
+            t[j] = acc
+            acc += k
+            if acc >= W:
+                acc -= W
+        assert (t == n * k % W).all() and (t < W).all()
+        for f in range(n_frames):
+            v = xw[f * (W + 1):f * (W + 1) + W]
+            re = np.float32(0)
+            im = np.float32(0)
+            for j in range(W):
+                re = np.float32(re + v[j] * tw_re[t[j]])
+                im = np.float32(im + v[j] * tw_im[t[j]])
+            out[f, k] = complex(re, im)
+    return out
+
+
+@pytest.mark.parametrize("window", [64, 200, 382])
+def test_emulated_dft_matches_rfft(window):
+    rng = np.random.RandomState(window)
+    n_frames = 3
+    x = (rng.randn((n_frames + 1) * window // 2) * 0.3).astype(np.float32)
+    got = emulate_dft(x, window, n_frames)
+    frames = SR.frame(torch.from_numpy(x).double(), window, window // 2)
+    want = torch.fft.rfft(frames * torch.from_numpy(SR.hamming(window)),
+                          dim=-1).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-5)

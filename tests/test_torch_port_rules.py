@@ -46,19 +46,23 @@ def test_port_imports_no_jax_and_no_reference_package():
 def _entry_points():
     from repro_torch.configs import SERF_AUDIO as cfg
     from repro_torch.core.graph import PipelineGraph
-    from repro_torch.core.plans import Preprocessor, TwoPhasePlan
+    from repro_torch.core.plans import (CachedPlan, FusedPlan, Preprocessor,
+                                        TwoPhasePlan)
     from repro_torch.device import resolve_device
     from repro_torch.launch import preprocess
     return {
         "resolve_device": lambda: resolve_device(),
         "Preprocessor": lambda: Preprocessor(cfg),
         "TwoPhasePlan": lambda: TwoPhasePlan(PipelineGraph(cfg)),
+        "FusedPlan": lambda: FusedPlan(PipelineGraph(cfg)),
+        "CachedPlan": lambda: CachedPlan(PipelineGraph(cfg)),
         "launch.preprocess": lambda: preprocess.main(["--minutes", "4"]),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "Preprocessor",
-                                  "TwoPhasePlan", "launch.preprocess"])
+                                  "TwoPhasePlan", "FusedPlan", "CachedPlan",
+                                  "launch.preprocess"])
 def test_entry_points_raise_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; this checks the CPU-only case")
