@@ -23,13 +23,15 @@ outside a checkout of the repo. Phases, any failure exits non-zero:
      function). The direct-DFT paths of the STFT and fused-tail kernels
      (`stft_dft_generic`, `fused_tail_generic`) at windows 382 and 200, the
      fused tail with and without the high-pass.
-  3. main path: seven cells (`CELLS`) of `Preprocessor(SERF_AUDIO, ...)`
+  3. main path: eight cells (`CELLS`) of `Preprocessor(SERF_AUDIO, ...)`
      on the card over 3 batches of `audio_batch_maker(seed=25,
      batch_long_chunks=4)` (12 minutes of stereo 44.1 kHz audio):
      `two_phase` with the fused tail and with `fuse_tail=False`, the
      asynchronous `async` (depth 2) and `streaming` plans with the fused
-     tail, the no-early-exit `fused` plan, and `cached` around two_phase,
-     cold (every run from an emptied store) and warm (every batch a hit).
+     tail, the no-early-exit `fused` plan, `cached` around two_phase,
+     cold (every run from an emptied store) and warm (every batch a hit),
+     and the in-process `sharded` plan over 2 shards (its survivors
+     re-sliced across them on the device for the staged tail).
      Each is warmed up (over one batch; the warm cached cell over all
      three, which fills its store), then driven once with the launch
      counts set to 0 just before and read just after: every kernel of its
@@ -51,9 +53,33 @@ outside a checkout of the repo. Phases, any failure exits non-zero:
      resumed: batches [0, 1, 2] once each, 2 misses, output bitwise equal
      to two_phase's), and batch 0 at a 382-sample window through
      two_phase, whose run must launch the direct-DFT kernels and match the
-     port's CPU run.
-  4. one JSON line with every kernel's numbers, then the result line
-     `{"ok": true, "device": {...}}` last.
+     port's CPU run. The sharded cell's masks must equal the fused
+     two_phase cell's and its cleaned audio the staged cell's within rtol
+     1e-4 / atol 1e-5.
+  4. worker processes: two cells (`PROC_CELLS`) of the sharded plan with
+     2 real worker processes on the one card (`transport="proc"`, one work
+     id a lease), over 8 batches of the same stream (wids 0-2 the cells'
+     batches above), with the socket data plane and with a `ChunkStore`
+     data plane emptied before every pass. The master's launch counts must
+     stay 0: the workers report theirs at sign-off, and their FIR, STFT and
+     fused-tail launches must be there, with device `cuda` and the bytes
+     their allocators hold on the card; `nvidia-smi --query-compute-apps`
+     is read while the fleet runs, and the worker pids must be listed (or,
+     where it lists pids of another namespace than this process's, the
+     card's used memory must fall by 256 MiB a worker once they exit);
+     every wid emitted once, in order, batches 0-2 bitwise equal to the
+     fused two_phase cell.
+     Printed: MB/s of a whole run as a
+     user sees it, fleet spawn included (median, min and max of
+     `PROC_PASSES` passes, the two cells in turns), the fleet's start (run()
+     to the last hello), each worker's idle and busy seconds, the bytes
+     through the master's socket or the store. Then the kill phase: a
+     `CrashInjector` SIGKILLs shard 1 at its second lease; every wid must
+     be emitted once, bitwise equal to the unkilled run, with at least one
+     redelivery.
+  5. one JSON line with every kernel's numbers (its launches summed over
+     the main-path runs, the workers' included), then the card's line and
+     the result line `{"ok": true, "device": {...}}` last.
 
 It imports only `repro_torch`, `torch` and numpy.
 """
@@ -62,6 +88,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -549,11 +576,25 @@ CELLS = {"serf_two_phase_fused": ("two_phase", {}),
          "serf_fused": ("fused", {}),
          "serf_cached_two_phase": ("cached", {"store": str(STORES / "cold")}),
          "serf_cached_two_phase_warm": ("cached",
-                                        {"store": str(STORES / "warm")})}
+                                        {"store": str(STORES / "warm")}),
+         "serf_sharded_inproc": ("sharded", {"shards": 2,
+                                             "transport": "inproc",
+                                             "lease_items": 1})}
 # kernels a cell's main-path run must launch (the fused path's by default)
 NEED = {"serf_two_phase_staged": ("fir_hpf", "stft_dft", "mmse_stsa"),
         "serf_fused": ("fir_hpf", "stft_dft", "mmse_stsa"),
-        "serf_cached_two_phase_warm": ()}
+        "serf_cached_two_phase_warm": (),
+        "serf_sharded_inproc": ("fir_hpf", "stft_dft", "mmse_stsa")}
+# the sharded plan with 2 real worker processes on the one card
+# (`transport="proc"`, one work id a lease), over 8 batches of the stream
+# (wids 0-2 the other cells' batches): cell -> further plan arguments. The
+# store cell's data plane is emptied before every pass.
+PROC_CELLS = {"serf_sharded_proc": {},
+              "serf_sharded_proc_store": {"data_plane": str(STORES / "plane")}}
+PROC_BATCHES = 8
+PROC_PASSES = 3                 # timed passes of a proc cell, each with its
+#                                 fleet's spawn (5 for the other cells)
+PROC_NEED = ("fir_hpf", "stft_dft", "fused_tail")   # in the workers
 # the cached cell whose every run starts from an emptied store (all
 # misses), and the one whose store the warm-up fills (all hits)
 COLD, WARM = "serf_cached_two_phase", "serf_cached_two_phase_warm"
@@ -651,10 +692,11 @@ def main_path(torch, np, card):
                                pass_times[label])
         mb_per_s = sorted(src / 2**20 / s for s in pass_s)
         # per-layer split: one more pass, synchronising between the phases
-        # (the two-phase plans; the fused and cached plans have no split)
+        # (the two-phase plans; the fused, cached and sharded plans have no
+        # such split)
         detect_ms, tail_ms = [], []
-        for _, (audio, _) in (batches if hasattr(pre.plan, "_finish")
-                              else ()):
+        split = hasattr(pre.plan, "_finish") and pre.plan.name != "sharded"
+        for _, (audio, _) in (batches if split else ()):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             det = pre.plan.detect(audio)
@@ -771,6 +813,26 @@ def main_path(torch, np, card):
               f"{max(diffs):.3g})")
     print(json.dumps({"serf_fused_vs_staged": {
         "bitwise": bitwise, "max_abs_diff": diffs}}), flush=True)
+    # the in-process sharded cell: the same detection as two_phase (masks
+    # equal), its survivors re-sliced across 2 shards for the staged tail
+    # (cleaned within the plan-equivalence bound of the staged cell)
+    diffs, bitwise = [], True
+    for a, b, c in zip(base, runs["serf_two_phase_staged"]["res"],
+                       runs["serf_sharded_inproc"]["res"]):
+        check(a.wid == c.wid, "serf_sharded_inproc: batches out of order")
+        check_masks(a.det, c.det, "serf_sharded_inproc against two_phase's")
+        check(b.cleaned.shape == c.cleaned.shape,
+              f"serf_sharded_inproc: cleaned {c.cleaned.shape} against the "
+              f"staged cell's {b.cleaned.shape}")
+        bitwise &= bool(np.array_equal(b.cleaned, c.cleaned))
+        diffs.append(float(np.abs(b.cleaned - c.cleaned).max())
+                     if b.n_kept else 0.0)
+        check(np.allclose(c.cleaned, b.cleaned, *TOL["plan_equivalence"]),
+              f"serf_sharded_inproc: cleaned audio differs from the staged "
+              f"cell's beyond rtol 1e-4 / atol 1e-5 (max |err| "
+              f"{max(diffs):.3g})")
+    print(json.dumps({"serf_sharded_inproc_vs_staged": {
+        "bitwise": bitwise, "max_abs_diff": diffs}}), flush=True)
 
     # batch 0 against the port's own CPU run on the same numpy input
     chunks0 = batches[0][1][0]
@@ -784,7 +846,225 @@ def main_path(torch, np, card):
 
     kill_and_resume(torch, np, batches, base)
     runs["serf_w382_two_phase"] = window382(torch, np, chunks0)
+    # the in-process cells' buffers go before the workers take the card
+    del cells, results, cpu_pre, cpu
+    stream8 = batches + [(w, make(w)) for w in range(3, PROC_BATCHES)]
+    runs.update(proc_cells(torch, np, stream8, base, card))
     return runs
+
+
+# ------------------------------------------------- the worker-process cells
+
+def gpu_apps():
+    """The card's compute processes as `nvidia-smi` lists them, [(pid,
+    used memory)], and the card's used memory in MiB."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    apps = []
+    for line in out.stdout.strip().splitlines():
+        pid, _, mem = line.partition(",")
+        if pid.strip().isdigit():
+            apps.append((int(pid), mem.strip()))
+    return {"apps": apps,
+            "used_mib": float(nvidia_smi("memory.used").split()[0])}
+
+
+def check_workers_on_card(label, pids, during, after):
+    """The workers held contexts on the card while their fleet ran. Where
+    `nvidia-smi` lists this process's own pid among the compute processes,
+    each worker pid must be listed too. A machine whose process namespace
+    `nvidia-smi` cannot see lists other pids (one entry, pid 1): there the
+    card's used memory must have dropped, once the fleet exited, by at
+    least 256 MiB a worker (a CUDA context and its allocations). Returns
+    which of the two was held."""
+    listed = {pid for pid, _ in during["apps"]}
+    if os.getpid() in listed:
+        check(set(pids) <= listed,
+              f"{label}: worker pids {pids} are not among the card's "
+              f"compute processes {sorted(listed)}")
+        return "pids listed"
+    freed = during["used_mib"] - after["used_mib"]
+    check(freed >= 256 * len(pids),
+          f"{label}: the card's used memory fell by {freed:.0f} MiB when "
+          f"the {len(pids)} workers exited (nvidia-smi lists pids "
+          f"{sorted(listed)}, not this namespace's)")
+    return f"memory freed at exit: {freed:.0f} MiB"
+
+
+def proc_pass(pre, batches, watch=None):
+    """One run of a proc cell over the stream, as a user makes it: the
+    fleet's spawn, the 8 batches, the workers' sign-off. Returns (results,
+    wall seconds, what `watch` returned when it was called once, after
+    the first result, while the fleet still ran)."""
+    dp = pre.plan.data_plane
+    if dp is not None:
+        shutil.rmtree(dp, ignore_errors=True)
+    t0 = time.perf_counter()
+    out, seen = [], None
+    for r in pre.run(batches):
+        out.append(r)
+        if watch is not None and len(out) == 1:
+            seen = watch()
+    return out, time.perf_counter() - t0, seen
+
+
+def fleet_record(plan):
+    """What one proc run's master saw: the fleet's start (run() to the
+    last hello), each worker's idle/busy split and launches, and the
+    data-plane bytes through the master's socket and the store."""
+    c = plan.fleet.service.metrics()["counters"]
+    return {"fleet_start_s": plan.fleet_start_s,
+            "redeliveries": plan.redeliveries,
+            "workers": [{"worker": st.worker, "pid": st.pid,
+                         "state": st.state, "chunks_done": st.chunks_done,
+                         "idle_s": st.idle_s, "busy_s": st.busy_s,
+                         "launches": (st.report or {}).get("launches"),
+                         "cuda_reserved_bytes": (st.report or {}).get(
+                             "cuda_reserved_bytes")}
+                        for st in plan.worker_stats],
+            "bytes": {k: c[k] for k in (
+                "fetch_bytes_socket", "push_bytes_socket",
+                "fetch_bytes_store", "push_bytes_store")}}
+
+
+def proc_cells(torch, np, batches, base, card):
+    """The sharded plan over 2 worker processes on the card, socket and
+    store data planes: a main-path run per cell (the master's launch counts
+    set to 0 before and read after: none, every kernel is launched in the
+    workers, which report theirs at sign-off; the workers' pids listed by
+    `nvidia-smi` while the fleet runs), checks against the fused two_phase
+    cell (batches 0-2 bitwise, every wid once and in order), PROC_PASSES
+    timed passes in turns, then the kill phase."""
+    from repro_torch import kernels
+    from repro_torch.configs import SERF_AUDIO
+    from repro_torch.core.plans import Preprocessor
+
+    src = sum(c.nbytes for _, (c, _) in batches)
+    cells = {label: Preprocessor(SERF_AUDIO, plan="sharded", shards=2,
+                                 transport="proc", lease_items=1, **kw)
+             for label, kw in PROC_CELLS.items()}
+    runs = {}
+    for label, pre in cells.items():
+        check(pre.device.type == "cuda", "Preprocessor did not pick the card")
+        kernels.reset_launches()
+        res, wall, during = proc_pass(pre, batches, watch=gpu_apps)
+        master = kernels.launches()
+        time.sleep(1.0)             # the exited workers' contexts freed
+        after = gpu_apps()
+        fleet = fleet_record(pre.plan)
+        reports = [st.report or {} for st in pre.plan.worker_stats]
+        launches = {n: sum(r.get("launches", {}).get(n, 0) for r in reports)
+                    for n in kernels.KERNELS}
+        pids = sorted(st.pid for st in pre.plan.worker_stats)
+        rec = {"main_path": label, "plan": "sharded", "transport": "proc",
+               "data_plane": "store" if PROC_CELLS[label] else "socket",
+               "launches": launches, "master_launches": master,
+               "master_pid": os.getpid(), "worker_pids": pids,
+               "gpu_apps_during": during, "gpu_apps_after": after,
+               "wall_s": wall, "batches": len(batches), **fleet}
+        print(json.dumps(rec), flush=True)
+        rec["workers_on_card"] = check_workers_on_card(label, pids, during,
+                                                       after)
+        print(f"{label}: worker pids {pids} on the card ("
+              f"{rec['workers_on_card']}); nvidia-smi compute apps while "
+              f"the fleet ran: {during['apps']}", flush=True)
+        check([r.wid for r in res] == list(range(len(batches))),
+              f"{label}: emitted {[r.wid for r in res]}, not every wid "
+              f"once in order")
+        check(len(reports) == 2 and all(r.get("device") == "cuda"
+                                        for r in reports),
+              f"{label}: the workers did not all sign off from the card")
+        check(all((r.get("cuda_reserved_bytes") or 0) > 0 for r in reports),
+              f"{label}: a worker held no memory on the card at sign-off")
+        for n in PROC_NEED:
+            check(launches[n] > 0, f"{label}: the workers never launched "
+                                   f"kernel {n}")
+        check(not any(master.values()),
+              f"{label}: the master launched kernels {master}")
+        for r in res:
+            check(r.cleaned.shape == (r.n_kept,
+                                      SERF_AUDIO.final_split_samples)
+                  and np.isfinite(r.cleaned).all(),
+                  f"{label}: cleaned batch {r.wid} is malformed")
+        for a, b in zip(base, res):
+            check_masks(a.det, b.det, f"{label} against two_phase's")
+            check(np.array_equal(a.cleaned, b.cleaned),
+                  f"{label}: batch {b.wid} differs from two_phase's fused "
+                  f"cell (bitwise)")
+        runs[label] = dict(rec, res=res)
+
+    pass_times = {label: [] for label in cells}
+    fleets = {label: [] for label in cells}
+    for rep in range(PROC_PASSES):
+        for label in (list(cells) if rep % 2 == 0 else list(cells)[::-1]):
+            _, wall, _ = proc_pass(cells[label], batches)
+            pass_times[label].append(wall)
+            fleets[label].append(fleet_record(cells[label].plan))
+    for label, pre in cells.items():
+        mb_per_s = sorted(src / 2**20 / s for s in pass_times[label])
+        med = statistics.median(mb_per_s)
+        kept = sum(r.n_kept for r in runs[label]["res"])
+        chunks = sum(int(r.det.keep.numel()) for r in runs[label]["res"])
+        runs[label].update(passes=PROC_PASSES, pass_s=pass_times[label],
+                           mb_per_s_median=med, mb_per_s_min=mb_per_s[0],
+                           mb_per_s_max=mb_per_s[-1], src_mb=src / 2**20,
+                           kept=kept, chunks=chunks, pass_fleets=fleets[label])
+        plane = runs[label]["data_plane"]
+        print(f"plan=sharded cell={label} card={card}  {src / 2**20:.0f} MB "
+              f"source audio per pass, 2 worker processes, data plane "
+              f"{plane}, median of {PROC_PASSES} passes (fleet spawn "
+              f"included)  ->  {med:.2f} MB/s ({mb_per_s[0]:.2f}-"
+              f"{mb_per_s[-1]:.2f})", flush=True)
+        print(f"chunks kept {kept}/{chunks} ({label})", flush=True)
+        for i, f in enumerate(fleets[label]):
+            split = ", ".join(f"{w['worker']} idle {w['idle_s']:.3f} s / busy "
+                              f"{w['busy_s']:.3f} s" for w in f["workers"])
+            b = f["bytes"]
+            print(f"{label} pass {i}: fleet start {f['fleet_start_s']:.3f} s; "
+                  f"{split}; socket {b['fetch_bytes_socket'] / 2**20:.1f} MB "
+                  f"out + {b['push_bytes_socket'] / 2**20:.1f} MB back, "
+                  f"store keys {b['fetch_bytes_store']} B out + "
+                  f"{b['push_bytes_store']} B back", flush=True)
+        print(json.dumps({k: v for k, v in runs[label].items()
+                          if k != "res"}), flush=True)
+
+    sharded_proc_kill(np, batches, runs["serf_sharded_proc"]["res"])
+    for rec in runs.values():
+        del rec["res"]
+    return runs
+
+
+def sharded_proc_kill(np, batches, want):
+    """A CrashInjector SIGKILLs shard 1 at its second lease, while it
+    holds it: each wid must be emitted exactly once, bitwise equal to the
+    unkilled run of the socket-plane cell (`want`), and the lease must
+    have been redelivered."""
+    from repro_torch.configs import SERF_AUDIO
+    from repro_torch.core.plans import Preprocessor
+    from repro_torch.ft.failure import CrashInjector
+
+    inj = CrashInjector()
+    inj.kill(1, after_items=1)
+    pre = Preprocessor(SERF_AUDIO, plan="sharded", shards=2,
+                       transport="proc", lease_items=1, injector=inj)
+    res, wall, _ = proc_pass(pre, batches)
+    rec = {"sharded_proc_kill": {
+        "emitted": [r.wid for r in res], "wall_s": wall,
+        "killed_alive": inj.alive(1), **fleet_record(pre.plan)}}
+    print(json.dumps(rec), flush=True)
+    check([r.wid for r in res] == list(range(len(batches))),
+          f"sharded_proc_kill: emitted {[r.wid for r in res]}, not every "
+          f"wid exactly once")
+    check(not inj.alive(1), "sharded_proc_kill: shard 1 was never killed")
+    check(pre.plan.redeliveries >= 1,
+          "sharded_proc_kill: the killed worker's lease was not redelivered")
+    for r, w in zip(res, want):
+        check_masks(r.det, w.det, f"sharded_proc_kill, batch {r.wid}")
+        check(np.array_equal(r.cleaned, w.cleaned),
+              f"sharded_proc_kill: batch {r.wid} differs from the unkilled "
+              f"run (bitwise)")
+    return rec
 
 
 def check_masks(a, b, what):

@@ -1,6 +1,6 @@
 """Execution plans: how a validated `PipelineGraph` runs on a batch stream.
 
-The reference's plans, but for the sharded one, are ported:
+The reference's plans, all ported:
 
   * `FusedPlan`     -- the whole chain on every chunk in one pass, removed
                        chunks masked but still denoised: the paper's
@@ -23,6 +23,16 @@ The reference's plans, but for the sharded one, are ported:
                        pinned host buffers, a copy stream one batch ahead.
   * `StreamingPlan` -- `AsyncPlan` at depth 1, linear padding, no donation
                        and no held-back tail.
+  * `ShardedPlan`   -- the paper's master/worker runtime: a shared leased
+                       `WorkQueue` served behind a `dist.QueueService` to
+                       shards that are simulated in this process
+                       (`transport="inproc"`, a survivor re-shard by the
+                       `Rebalancer` between detection and the tail) or real
+                       worker processes (`"proc"`, `"tcp"`: each runs
+                       `two_phase` on the device its setup blob names),
+                       with redelivery of a dead worker's leases,
+                       speculative re-lease of stragglers and
+                       completion-gated, exactly-once emission.
   * `CachedPlan`    -- any of the above behind a content-addressed
                        `store.ChunkStore` (a batch seen before is a lookup)
                        and a `store.RunJournal` (a killed run resumes,
@@ -39,14 +49,14 @@ False forces the staged per-stage path, True demands fusion and raises on
 a non-canonical tail.
 
 The port runs eagerly: no compile cache. Bucketing (`bucket`, `pad_multiple`)
-still decides the tail's row count, as in the reference. The reference's
-`ShardedPlan` comes with the distribution slice.
+still decides the tail's row count, as in the reference.
 """
 from __future__ import annotations
 
 import collections
 import operator
 import os
+import threading
 import time
 from dataclasses import dataclass, field, replace
 
@@ -57,9 +67,13 @@ from repro_torch.core import scheduler as SCHED
 from repro_torch.core import transfer
 from repro_torch.core.graph import (GraphValidationError, PipelineGraph,
                                     PipelineOutput)
+from repro_torch.data.loader import ShardedLoader, make_shard_pool
 from repro_torch.data.queue import WorkQueue
 from repro_torch.device import resolve_device
-from repro_torch.dist.service import pack_result, unpack_result
+from repro_torch.dist.data_plane import StoreDataPlane
+from repro_torch.dist.service import QueueService, pack_result, unpack_result
+from repro_torch.dist.transport import ProcTransport, TcpTransport
+from repro_torch.ft.failure import StragglerDetector
 from repro_torch.store import ChunkStore, RunJournal, content_key
 
 # Cap on the per-batch timing dicts `AsyncPlan.last_timings` keeps.
@@ -375,6 +389,584 @@ class StreamingPlan(AsyncPlan):
                          fuse_tail=fuse_tail, device=device)
 
 
+class _StreamMeta:
+    """ShardedPlan's marker for a plain stream's items: carries the
+    original stream wid and labels through the queue as the item's
+    `extra`, distinct from user labels that happen to be tuples."""
+    __slots__ = ("wid", "labels")
+
+    def __init__(self, wid, labels):
+        self.wid = wid
+        self.labels = labels
+
+
+def _merge_outputs(outs):
+    """Concatenate per-shard PipelineOutputs (row order kept) with
+    chunk-count-weighted stats: the batch reads as if one shard detected
+    it."""
+    if len(outs) == 1:
+        return outs[0]
+    cat = lambda f: torch.cat([getattr(o, f) for o in outs])  # noqa: E731
+    ws = np.array([float(o.stats["n_chunks5"]) for o in outs])
+    stats = {"n_chunks5": int(ws.sum())}
+    for k in outs[0].stats:
+        if k != "n_chunks5":
+            vals = np.array([float(o.stats[k]) for o in outs])
+            stats[k] = float((vals * ws).sum() / ws.sum())
+    return PipelineOutput(wave5=cat("wave5"), keep=cat("keep"),
+                          rain=cat("rain"), silence=cat("silence"),
+                          cicada15=cat("cicada15"), stats=stats)
+
+
+# speculation: an item is a straggler once it has run STRAGGLER_FACTOR x
+# the p95 of at least STRAGGLER_MIN_HISTORY completed items' latencies
+STRAGGLER_FACTOR = 2.0
+STRAGGLER_MIN_HISTORY = 4
+
+
+class FleetControl:
+    """Live handle on a process fleet, published as `plan.fleet` while
+    `ShardedPlan._run_proc` runs (and left in place afterwards for the
+    service's counters): spawn a late joiner, drain a worker out
+    gracefully, or SIGKILL one. A late joiner goes through the same
+    `spawn_worker` + `hello` as the original fleet."""
+
+    def __init__(self, plan, service, transport, handles):
+        self.plan = plan
+        self.service = service
+        self.transport = transport
+        self.handles = handles          # shard -> WorkerHandle (live dict,
+                                        # shared with the emit loop)
+        self._next = max(handles, default=-1) + 1
+        self._lock = threading.Lock()
+
+    def live(self):
+        """shard -> WorkerHandle for workers whose process still runs."""
+        return {k: h for k, h in list(self.handles.items())
+                if h.poll() is None}
+
+    def spawn(self, shard=None):
+        """Spawn a worker (the next free shard id unless given). Its shard
+        id is reserved with the service registry against the child's pid
+        and adopted at its `hello`, never passed on the command line."""
+        with self._lock:
+            if shard is None:
+                shard = self._next
+            self._next = max(self._next, int(shard) + 1)
+        h = self.transport.spawn_worker(
+            shard, lease_items=self.plan.lease_items,
+            env_extra=self.plan._worker_env(int(shard)))
+        self.service.reserve(h.pid, int(shard))
+        self.handles[int(shard)] = h
+        if self.plan.injector is not None:
+            self.plan.injector.attach(int(shard), h.pid)
+        return h
+
+    def drain(self, shard):
+        """Ask one worker to leave gracefully (finish held leases, take no
+        more, exit through bye)."""
+        return self.service.drain(self.handles[int(shard)].worker)
+
+    def kill(self, shard):
+        """SIGKILL one worker: it dies holding whatever it holds."""
+        self.handles[int(shard)].kill()
+
+
+class ShardedPlan(TwoPhasePlan):
+    """Fault-tolerant multi-shard execution over a shared leased WorkQueue,
+    served by this plan (the master) to its workers over a transport
+    (`repro_torch.dist`).
+
+    In-process mode (`transport="inproc"`): the simulated round loop, one
+    round = every live shard pulls up to `lease_items`, every queue
+    mutation routed through the `QueueService`:
+
+      pull    each live shard leases work ids from the shared queue and
+              runs detection on the plan's device; a `CrashInjector` can
+              kill a shard mid-pull, leaving its lease open (recovered by
+              lease expiry or `fail_worker`, the paper's crashed-slave
+              re-send).
+      shuffle only the keep masks come to the host: the `Rebalancer`
+              packs the survivors in (shard, item) order and re-slices
+              them near-evenly across the live shards. The survivors are
+              gathered, split and padded as device tensors.
+      finish  the staged tail (`graph.tail`: the STFT and MMSE kernels on
+              the card) runs on each re-balanced slot; the cleaned rows
+              come to the host once per round and go back to their work
+              ids; `queue.complete` gates emission, each id exactly once.
+
+    Process mode (`transport="proc"` or `"tcp"`): real worker processes
+    (`repro_torch.dist.worker`) lease in batches over the transport, fetch
+    host chunk batches from the master (or a shared store, `data_plane=`),
+    run `two_phase` on the device the setup blob names (this plan's device
+    type) and push numpy results back; the master completes each work id
+    (the exactly-once gate), runs the Rebalancer on the returned masks as
+    the paper's Figs 14-16 ledger, emits in ascending work-id order,
+    SIGKILLs armed by the `CrashInjector` land on real pids, and dead
+    processes are reclaimed through `fail_worker` or lease expiry. On the
+    card the master builds every kernel library before the first spawn,
+    so that the workers only load them. With more than one card, shard k
+    is pinned to card k mod count (`CUDA_VISIBLE_DEVICES`); with one,
+    every worker shares it (each its own CUDA context). Workers inherit
+    this process's environment (`OMP_NUM_THREADS` sets a CPU worker's
+    threads).
+
+    `__call__` (the serve path) always row-splits in-process. The
+    reference's per-shard `rules` pool has no counterpart yet: every
+    in-process shard runs on this plan's device. The reference's
+    `telemetry=` comes with the observability slice.
+    """
+    name = "sharded"
+
+    def __init__(self, graph, pad_multiple=1, shards=2, lease_items=1,
+                 injector=None, monitor=None, transport="inproc",
+                 stall_timeout_s=300.0, lease_timeout_s=None,
+                 speculate=None, data_plane=None, device=None):
+        super().__init__(graph, pad_multiple, device=device)
+        self.shards = max(1, int(shards))
+        self.lease_items = max(1, int(lease_items))
+        self.injector = injector
+        self.monitor = monitor
+        self.transport = transport
+        self.stall_timeout_s = float(stall_timeout_s)
+        # lease deadline of the plan's internal queue (plain-stream runs;
+        # a caller's pool brings its own queue); None: the transport's
+        # default_lease_timeout
+        self.lease_timeout_s = lease_timeout_s
+        # speculative re-lease of stragglers; None: on for worker
+        # processes, off for the simulated loop (where a duplicate only
+        # burns the one host)
+        self.speculate = speculate
+        self.data_plane = data_plane
+        self.fleet = None               # FleetControl while _run_proc lives
+        kind = self._transport_kind()   # validate early, not mid-stream
+        if data_plane is not None and kind == "inproc":
+            raise ValueError("data_plane= rides the proc/tcp worker "
+                             "runtime; the in-process loop never "
+                             "serialises chunks")
+        self.rebalancer = SCHED.Rebalancer(self.shards, pad_multiple)
+        self.redeliveries = 0           # mirrored off the queue after run()
+        self.speculations = 0
+        self.speculations_lost = 0
+        self.last_assignment = None     # the last round's ShardAssignment
+        self.worker_stats = None        # per-worker report of the last run
+        self.fleet_start_s = None       # proc: run start to the last hello
+        self._release = None            # stream-item drop hook (see run())
+
+    @staticmethod
+    def default_lease_timeout(kind) -> float:
+        """Lease deadline for a queue served over transport `kind`: 300 s
+        for worker processes, whose first item pays their start-up, else
+        60 s."""
+        return 300.0 if kind in ("proc", "tcp") else 60.0
+
+    def _transport_kind(self) -> str:
+        t = self.transport
+        if isinstance(t, str):
+            if t not in ("inproc", "proc", "tcp"):
+                raise ValueError(f"unknown transport {t!r} "
+                                 "(expected 'inproc', 'proc' or 'tcp')")
+            return t
+        kind = getattr(t, "name", None)
+        if kind not in ("inproc", "proc", "tcp"):
+            raise ValueError(f"transport object {t!r} names no known kind")
+        return kind
+
+    def _worker_env(self, shard):
+        """Environment additions of shard `shard`'s worker process: with
+        more than one card visible to this process, the one card it is
+        pinned to."""
+        if self.device.type != "cuda" or torch.cuda.device_count() < 2:
+            return {}
+        visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+        ids = (visible.split(",") if visible else
+               [str(i) for i in range(torch.cuda.device_count())])
+        return {"CUDA_VISIBLE_DEVICES": ids[shard % len(ids)]}
+
+    # -- single batch: row-split across shards, rebalance, reassemble -------
+    def __call__(self, audio) -> BatchResult:
+        x = self._to_device(audio)
+        parts = [p for p in torch.tensor_split(x, self.shards) if len(p)]
+        dets = [self.graph.detection(p) for p in parts]
+        keeps = [d.keep.cpu().numpy() for d in dets]
+        cleaned, asg = self._rebalanced_tail(
+            [(d.wave5, k) for d, k in zip(dets, keeps)], keeps, len(dets))
+        self.last_assignment = asg
+        return BatchResult(cleaned=cleaned, det=_merge_outputs(dets),
+                           n_kept=int(sum(k.sum() for k in keeps)),
+                           src_bytes=x.numel() * x.element_size())
+
+    def _rebalanced_tail(self, item_waves_keeps, shard_keeps, n_live):
+        """The rebalanced tail. item_waves_keeps: [(wave5 on the device,
+        host keep mask)] per detected item in packed order; shard_keeps:
+        one concatenated keep mask per live shard (the same order). The
+        survivors are gathered, re-sliced and padded on the device and
+        each slot runs `graph.tail`; the cleaned rows come to the host in
+        one copy. Returns (cleaned rows in packed survivor order,
+        ShardAssignment)."""
+        asg = self.rebalancer.assign(shard_keeps, out_shards=n_live)
+        surv = []
+        for wave, keep in item_waves_keeps:
+            idx = np.flatnonzero(keep)
+            if len(idx):
+                surv.append(wave.index_select(
+                    0, torch.from_numpy(idx).to(wave.device)))
+        if not surv:
+            width = (item_waves_keeps[0][0].shape[1]
+                     if item_waves_keeps else 0)
+            return np.zeros((0, width), np.float32), asg
+        packed = torch.cat(surv) if len(surv) > 1 else surv[0]
+        cleaned = torch.empty_like(packed)
+        for slot, batch, n_real in self.rebalancer.split(packed, asg):
+            lo = int(asg.bounds[slot])
+            cleaned[lo:lo + n_real] = self.graph.tail(batch)[:n_real]
+        return cleaned.cpu().numpy(), asg
+
+    # -- streams ------------------------------------------------------------
+    def run(self, batches):
+        """Takes a ShardedLoader pool (all over one WorkQueue) or any plain
+        batch stream, which is wrapped behind an internal WorkQueue. Sized
+        streams (lists, SizedIter) are drawn lazily and each item is
+        dropped once its work id completes; only unsized generators are
+        drawn in full first."""
+        if isinstance(batches, (list, tuple)) and batches and \
+                all(isinstance(b, ShardedLoader) for b in batches):
+            yield from self.run_pool(list(batches))
+            return
+        n = operator.length_hint(batches, -1)
+        it = _iter_batches(batches)
+        if n < 0:
+            drained = list(it)
+            n, it = len(drained), iter(drained)
+        store, cursor = {}, [0]
+        draw = threading.Lock()    # proc fetches come from handler threads
+
+        def make(i):
+            with draw:
+                while cursor[0] <= i:
+                    wid, chunks, extra = next(it)
+                    store[cursor[0]] = (chunks, _StreamMeta(wid, extra))
+                    cursor[0] += 1
+                return store[i]
+
+        timeout = self.lease_timeout_s
+        if timeout is None:
+            timeout = self.default_lease_timeout(self._transport_kind())
+        pool = make_shard_pool(make, n, self.shards,
+                               lease_items=self.lease_items,
+                               lease_timeout_s=timeout)
+        self._release = store.pop
+        try:
+            yield from self.run_pool(pool)
+        finally:
+            self._release = None
+
+    def run_pool(self, pool):
+        # shard-ascending order keeps the packed survivor order consistent
+        # with the per-shard masks handed to the Rebalancer
+        pool = sorted(pool, key=lambda ld: ld.shard)
+        queue = pool[0].queue
+        assert all(ld.queue is queue for ld in pool), \
+            "a shard pool must share one WorkQueue"
+        bad = sorted({ld.shard for ld in pool} - set(range(self.shards)))
+        if bad:
+            raise ValueError(
+                f"pool shard ids {bad} out of range for a "
+                f"{self.shards}-shard plan")
+        if self._transport_kind() in ("proc", "tcp"):
+            yield from self._run_proc(pool, queue)
+        else:
+            yield from self._run_sim(pool, queue)
+
+    def _make_straggler(self, kind):
+        """The speculation arm: a StragglerDetector for the QueueService,
+        or None (speculate=None: on for worker processes only)."""
+        on = (kind in ("proc", "tcp")) if self.speculate is None \
+            else bool(self.speculate)
+        if not on:
+            return None
+        return StragglerDetector(factor=STRAGGLER_FACTOR,
+                                 min_history=STRAGGLER_MIN_HISTORY)
+
+    def _finish_run(self, service, queue):
+        self.redeliveries = queue.redeliveries
+        self.speculations = queue.speculations
+        self.speculations_lost = queue.speculations_lost
+        self.worker_stats = service.worker_report()
+
+    # -- in-process master: the simulated round loop ------------------------
+    def _run_sim(self, pool, queue):
+        service = QueueService(queue, monitor=self.monitor,
+                               straggler=self._make_straggler("inproc"))
+        # every queue mutation flows through the service (delegation
+        # under the queue's lock), so the per-worker ledger accrues as in
+        # process mode
+        for ld in pool:
+            ld.queue = service
+        try:
+            stalls = 0
+            while not service.finished:
+                round_work = []      # (shard, wid, det, extra, nbytes)
+                for ld in pool:
+                    if not self._alive(ld.shard):
+                        continue
+                    # one beat per live shard per round
+                    service.note_beat(ld.worker)
+                    for wid, item in ld.pull():
+                        if self.injector is not None and \
+                                not self.injector.on_pull(ld.shard):
+                            break    # died holding this lease
+                        chunks, extra = item if isinstance(item, tuple) \
+                            else (item, None)
+                        x = self._to_device(chunks)
+                        round_work.append((ld.shard, wid,
+                                           self.graph.detection(x), extra,
+                                           x.numel() * x.element_size()))
+                if round_work:
+                    stalls = 0
+                    yield from self._finish_round(service, round_work)
+                    continue
+                if self._reclaim(service, pool) or service.finished:
+                    continue
+                deadline = service.next_deadline()
+                stalls += 1
+                if deadline is not None and stalls <= 8 and \
+                        any(self._alive(ld.shard) for ld in pool):
+                    # a lease nothing declared dead is still ticking: wait
+                    # out its deadline so that the next pull reaps and
+                    # redelivers it (injected clocks do not advance while
+                    # this sleeps: they re-poll into the stall cap)
+                    if queue.clock in (time.monotonic, time.time):
+                        time.sleep(max(0.0, min(deadline - queue.clock(),
+                                                queue.lease_timeout_s))
+                                   + 1e-3)
+                    continue
+                raise RuntimeError(
+                    "sharded plan stalled: work is leased but no live "
+                    f"shard can make progress (progress "
+                    f"{service.progress()})")
+        finally:
+            for ld in pool:
+                ld.queue = queue
+        self._finish_run(service, queue)
+
+    def _finish_round(self, service, round_work):
+        """The rebalanced tail of one round, then exactly-once emission in
+        the round's order."""
+        live = sorted({s for s, *_ in round_work})
+        keeps = [d.keep.cpu().numpy() for _, _, d, _, _ in round_work]
+        # packed in (shard, item) order == round_work order (pool order),
+        # so the per-shard masks are contiguous slices of it
+        shard_keeps = [np.concatenate(
+            [k for (s, *_), k in zip(round_work, keeps) if s == s2])
+            for s2 in live]
+        cleaned_all, asg = self._rebalanced_tail(
+            [(d.wave5, k) for (_, _, d, _, _), k in zip(round_work, keeps)],
+            shard_keeps, len(live))
+        self.last_assignment = asg
+        offs = np.concatenate(
+            [[0], np.cumsum([k.sum() for k in keeps])]).astype(int)
+        for i, (shard, wid, det, extra, nbytes) in enumerate(round_work):
+            if not service.complete([wid]):
+                continue             # redelivery raced a straggler
+            cleaned = cleaned_all[offs[i]:offs[i + 1]]
+            service.note_done(f"shard{shard}", wid=wid)
+            if self._release is not None:
+                self._release(wid, None)     # drop the buffered stream item
+            orig_wid, labels = (extra.wid, extra.labels) \
+                if isinstance(extra, _StreamMeta) else (wid, extra)
+            yield BatchResult(cleaned=cleaned, det=det,
+                              n_kept=int(offs[i + 1] - offs[i]),
+                              wid=orig_wid, labels=labels, src_bytes=nbytes)
+
+    def _alive(self, shard):
+        return self.injector is None or self.injector.alive(shard)
+
+    def _reclaim(self, queue, pool):
+        """All pending work is held by dead shards: return their leases
+        (the injector's or the heartbeat monitor's verdict). True if any
+        work came back."""
+        dead_workers = {ld.worker for ld in pool if not self._alive(ld.shard)}
+        if self.monitor is not None:
+            dead_workers |= set(self.monitor.dead())
+        got = 0
+        for w in sorted(dead_workers):
+            got += len(queue.fail_worker(w))
+        return got > 0
+
+    # -- proc master: real worker processes over the transport --------------
+    def _proc_setup(self):
+        """The picklable blob workers build their plan from: the port's
+        config, stage names, pad/bucket and the device type to run on."""
+        return {"cfg": self.graph.cfg, "stages": list(self.graph.names),
+                "source_channels": self.graph.source_geom.channels,
+                "pad_multiple": self.pad_multiple, "bucket": self.bucket,
+                "device": self.device.type}
+
+    def _run_proc(self, pool, queue):
+        t_start = time.monotonic()
+        make_item = pool[0].make_item
+        extras = {}                 # wid -> labels/_StreamMeta, master-side
+
+        def fetch(wid):
+            """Materialise the batch on the master and ship only its host
+            f32 bytes (labels stay here for emission). None once the id is
+            done: a redelivered lease that lost the race to a straggler's
+            completion skips it."""
+            if queue.is_done(wid):
+                return None
+            try:
+                item = make_item(wid)
+            except KeyError:
+                # completed and released between the check and the read
+                if queue.is_done(wid):
+                    return None
+                raise
+            chunks, extra = item if isinstance(item, tuple) \
+                else (item, None)
+            extras[wid] = extra
+            return _host_f32(chunks)
+
+        dp = self.data_plane
+        if dp is not None and not isinstance(dp, StoreDataPlane):
+            # CachedPlan's value identity, so that raw entries dedup across
+            # runs of the same graph on the same device type
+            dp = StoreDataPlane(dp, graph_fingerprint=self.graph.fingerprint,
+                                framework_tag=f"torch-{self.device.type}")
+        service = QueueService(queue, fetch_item=fetch,
+                               setup=self._proc_setup(),
+                               monitor=self.monitor,
+                               straggler=self._make_straggler("proc"),
+                               data_plane=dp)
+        if not isinstance(self.transport, str):
+            tp = self.transport
+        else:
+            tp = TcpTransport() if self.transport == "tcp" \
+                else ProcTransport()
+        handles = {}
+        if self.injector is not None:
+            def on_grant(worker, wid):
+                # a doomed shard is SIGKILLed the moment its fatal lease is
+                # granted, so it dies holding the lease
+                self.injector.on_pull(service.workers[worker].shard)
+            service.on_grant = on_grant
+        snap = queue.state()
+        order = [i for i in range(snap["n_items"])
+                 if i not in set(snap["done"])]
+        if self.device.type == "cuda":
+            # every worker loads the same libraries: build them once here
+            from repro_torch.kernels import _build
+            _build.build()
+        try:
+            tp.serve(service)
+            self.fleet = FleetControl(self, service, tp, handles)
+            for k in range(self.shards):
+                self.fleet.spawn(k)
+            yield from self._proc_emit_loop(service, queue, handles,
+                                            extras, order)
+            # the queue is drained: give workers a moment to observe
+            # `finished` and sign off (bye carries their stats)
+            deadline = time.monotonic() + 5.0
+            for h in list(handles.values()):
+                try:
+                    h.proc.wait(max(0.0, deadline - time.monotonic()))
+                except Exception:
+                    pass
+        finally:
+            for h in list(handles.values()):
+                h.shutdown()
+            tp.close()
+            # the ledger is kept for a failed run too (post-mortem)
+            joined = [st.joined_at for st in service.workers.values()
+                      if st.joined_at is not None]
+            self.fleet_start_s = max(joined) - t_start if joined else None
+            self._finish_run(service, queue)
+
+    def _proc_emit_loop(self, service, queue, handles, extras, order):
+        """Drain worker results, gate on completion (exactly once), emit in
+        ascending work-id order, and reclaim dead worker processes fast
+        through fail_worker."""
+        buffered = {}
+        emit_i = 0
+        reclaimed = set()
+        last_progress = time.monotonic()
+        while emit_i < len(order):
+            drained = service.pop_results()
+            if drained:
+                last_progress = time.monotonic()
+                # store plane: pushes are key refs, materialised here,
+                # off the handler threads
+                drained = [(w, wid, service.resolve_result(p))
+                           for w, wid, p in drained]
+                self._note_assignment(service, drained)
+            for worker, wid, payload in drained:
+                # the winner's name rides into complete() so that a lost
+                # speculation race is charged to the other incarnation
+                if not queue.complete([wid], worker=worker):
+                    continue        # redelivery raced a straggler
+                det, f = unpack_result(payload)
+                service.note_done(worker, wid=wid)
+                buffered[wid] = (det, f)
+            progressed = bool(drained)
+            while emit_i < len(order) and order[emit_i] in buffered:
+                wid = order[emit_i]
+                emit_i += 1
+                det, f = buffered.pop(wid)
+                if self._release is not None:
+                    self._release(wid, None)
+                extra = extras.pop(wid, None)
+                orig_wid, labels = (extra.wid, extra.labels) \
+                    if isinstance(extra, _StreamMeta) else (wid, extra)
+                yield BatchResult(cleaned=f["cleaned"], det=det,
+                                  n_kept=f["n_kept"], wid=orig_wid,
+                                  labels=labels, src_bytes=f["src_bytes"])
+            if emit_i >= len(order) or progressed:
+                continue
+            # no progress this tick: look for dead workers to reclaim
+            # (`handles` is live: late joiners appear through plan.fleet).
+            # A worker that exited draining or departed left holding
+            # nothing and is not marked dead.
+            for k, h in list(handles.items()):
+                if k in reclaimed or h.poll() is None or queue.finished:
+                    continue
+                reclaimed.add(k)
+                st = service.workers.get(h.worker)
+                if st is not None and st.state in ("draining", "departed"):
+                    continue
+                service.fail_worker(h.worker)
+            if self.monitor is not None:
+                for w in sorted(set(self.monitor.dead())):
+                    service.fail_worker(w)
+                    self.monitor.forget(w)
+            if all(h.poll() is not None for h in handles.values()) \
+                    and not queue.finished:
+                raise RuntimeError(
+                    "sharded plan stalled: every worker process exited "
+                    f"with work outstanding (progress {queue.progress()})")
+            if time.monotonic() - last_progress > self.stall_timeout_s:
+                raise RuntimeError(
+                    f"sharded plan stalled: no worker progress for "
+                    f"{self.stall_timeout_s:.0f}s "
+                    f"(progress {queue.progress()})")
+            time.sleep(0.01)
+
+    def _note_assignment(self, service, drained):
+        """The paper's Figs 14-16 ledger in process mode: the Rebalancer
+        on the masks this drain returned, grouped per source shard. No
+        data moves (each worker denoised its own leases); the would-be
+        re-shard is the measurement."""
+        by_shard = {}
+        for worker, wid, payload in drained:
+            st = service.workers.get(worker)
+            shard = st.shard if st is not None else -1
+            by_shard.setdefault(shard, []).append(
+                np.asarray(payload["keep"]))
+        keeps = [np.concatenate(v) for _, v in sorted(by_shard.items())]
+        if keeps:
+            self.last_assignment = self.rebalancer.assign(
+                keeps, out_shards=len(keeps))
+
+
 class SizedIter:
     """One-shot iterable with a length hint: a stream drawn lazily whose
     length CachedPlan can learn without drawing it (its miss stream to the
@@ -557,7 +1149,7 @@ class CachedPlan(ExecutionPlan):
 
 
 PLANS = {p.name: p for p in (FusedPlan, TwoPhasePlan, StreamingPlan,
-                             AsyncPlan, CachedPlan)}
+                             AsyncPlan, ShardedPlan, CachedPlan)}
 
 
 class Preprocessor:

@@ -5,6 +5,8 @@ long chunks through any plan of `PLANS`, on the CUDA card by default.
   PYTHONPATH=src python -m repro_torch.launch.preprocess --plan async --depth 4
   PYTHONPATH=src python -m repro_torch.launch.preprocess --plan fused
   PYTHONPATH=src python -m repro_torch.launch.preprocess --store /tmp/st
+  PYTHONPATH=src python -m repro_torch.launch.preprocess --plan sharded --shards 4
+  PYTHONPATH=src python -m repro_torch.launch.preprocess --plan sharded --transport proc --shards 2 --lease-items 2
   PYTHONPATH=src python -m repro_torch.launch.preprocess --device cpu
 
 Reports throughput in MB/s of source audio (the paper's headline metric),
@@ -18,9 +20,18 @@ elsewhere). `--store DIR` wraps the chosen plan in `CachedPlan` with a
 content-addressed store and a run journal in DIR: a second run over the
 same stream is all hits; `--resume` continues a killed `--store` run from
 its journal, each batch emitted once across the kill; `--store-max-bytes`
-evicts the least recently hit entries after the run. The batches are
-synthesised on the host as the loop asks for them, and that time is
-inside the reported wall time.
+evicts the least recently hit entries after the run. `--plan sharded`
+runs the master/worker runtime over `--shards` shards: `--transport inproc`
+simulates them in this process, `proc` spawns real worker processes
+(`python -m repro_torch.dist.worker`, on this run's device) that lease
+`--lease-items` work ids per round-trip (the paper's Table 7
+`max_queue_size` knob), `tcp` binds the master non-loopback;
+`--data-plane-store DIR` moves chunk and result bytes off the master's
+socket into a shared store, `--no-speculate` turns off the speculative
+re-lease of stragglers. It adds the queue's redeliveries, the last
+survivor re-shard and one summary line per worker. The batches are
+synthesised on the host as the loop asks for them (by the master, for
+the sharded plan), and that time is inside the reported wall time.
 """
 from __future__ import annotations
 
@@ -30,9 +41,9 @@ import time
 import torch
 
 from repro_torch.configs import SERF_AUDIO
-from repro_torch.core.plans import PLANS, Preprocessor, SizedIter
+from repro_torch.core.plans import PLANS, Preprocessor, ShardedPlan, SizedIter
 from repro_torch.core.scheduler import balance_stats
-from repro_torch.data.loader import audio_batch_maker
+from repro_torch.data.loader import audio_batch_maker, audio_shard_pool
 
 _FRAC_KEYS = ("frac_rain", "frac_silence", "frac_kept", "frac_cicada15")
 _STAGES = ("dispatch", "readback", "compact", "tail", "emit")
@@ -44,6 +55,27 @@ def main(argv=None):
     ap.add_argument("--batch-long-chunks", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--plan", default="two_phase", choices=sorted(PLANS))
+    ap.add_argument("--shards", type=int, default=2,
+                    help="shard / worker count for --plan sharded")
+    ap.add_argument("--transport", choices=("inproc", "proc", "tcp"),
+                    default="inproc",
+                    help="sharded worker runtime: 'inproc' simulates every "
+                         "shard in this process; 'proc' runs real worker "
+                         "processes over an authenticated localhost "
+                         "socket; 'tcp' binds non-loopback so that workers "
+                         "can join from other hosts (pair with "
+                         "--data-plane-store)")
+    ap.add_argument("--lease-items", type=int, default=1,
+                    help="work ids per queue round-trip (the paper's "
+                         "Table 7 max_queue_size knob) for --plan sharded")
+    ap.add_argument("--data-plane-store", default=None, metavar="DIR",
+                    help="move the sharded plan's data plane off the "
+                         "master's socket: chunk and result bytes through "
+                         "a shared ChunkStore at DIR (proc/tcp transports)")
+    ap.add_argument("--no-speculate", action="store_true",
+                    help="disable speculative re-lease of end-of-stream "
+                         "stragglers (sharded plan; on by default for "
+                         "worker processes)")
     ap.add_argument("--depth", type=int, default=None,
                     help="detect dispatch-ahead window for --plan async "
                          "(default 4)")
@@ -67,7 +99,29 @@ def main(argv=None):
     if args.store_max_bytes is not None and not args.store:
         ap.error("--store-max-bytes requires --store")
 
-    plan_kwargs = {}
+    sharded = args.plan == "sharded"
+    if not sharded:
+        if args.transport != "inproc":
+            ap.error("--transport picks the sharded plan's worker "
+                     f"runtime; plan '{args.plan}' has no workers")
+        if args.lease_items != 1:
+            ap.error("--lease-items batches the sharded plan's queue "
+                     f"pulls; plan '{args.plan}' has no lease loop")
+        if args.no_speculate:
+            ap.error("--no-speculate disables the sharded plan's "
+                     f"speculative re-lease; plan '{args.plan}' has none")
+        if args.data_plane_store:
+            ap.error("--data-plane-store moves the sharded plan's worker "
+                     f"data plane; plan '{args.plan}' has no workers")
+    if args.data_plane_store and args.transport == "inproc":
+        ap.error("--data-plane-store rides the proc/tcp worker runtime "
+                 "(the in-process loop never serialises chunks)")
+    plan_kwargs = {"shards": args.shards, "transport": args.transport,
+                   "lease_items": args.lease_items,
+                   "data_plane": args.data_plane_store,
+                   # None: the plan's default (on for worker processes)
+                   "speculate": False if args.no_speculate else None} \
+        if sharded else {}
     if args.plan == "async":
         plan_kwargs["depth"] = 4 if args.depth is None else args.depth
     elif args.depth is not None:
@@ -75,9 +129,10 @@ def main(argv=None):
                  f"plan '{args.plan}' has no use for it")
     if args.bucket is not None:
         if args.plan not in ("two_phase", "streaming", "async", "cached"):
+            # sharded pads through its Rebalancer; fused has no tail
             ap.error(f"--bucket selects the tail-shape quantization of "
-                     f"the two-phase-family plans; plan '{args.plan}' "
-                     f"does not take it")
+                     f"the single-stream two-phase-family plans; plan "
+                     f"'{args.plan}' does not take it")
         plan_kwargs["bucket"] = args.bucket
     plan = args.plan
     if args.store:
@@ -89,8 +144,18 @@ def main(argv=None):
                        **plan_kwargs)
     n_batches = max(1, int(round(args.minutes / args.batch_long_chunks)))
     make = audio_batch_maker(args.seed, args.batch_long_chunks)
-    stream = SizedIter(((wid, make(wid)) for wid in range(n_batches)),
-                       n_batches)
+    if sharded and not args.store:
+        # per-shard loaders over one shared leased queue, leased as long
+        # as the plan leases a plain stream over this transport
+        stream = audio_shard_pool(
+            seed=args.seed, n_batches=n_batches, n_shards=args.shards,
+            batch_long_chunks=args.batch_long_chunks,
+            lease_items=args.lease_items,
+            lease_timeout_s=ShardedPlan.default_lease_timeout(
+                args.transport))
+    else:
+        stream = SizedIter(((wid, make(wid)) for wid in range(n_batches)),
+                           n_batches)
 
     tot_bytes = tot_kept = tot_chunks = 0
     agg = {k: 0.0 for k in _FRAC_KEYS}
@@ -129,6 +194,24 @@ def main(argv=None):
     print(f"survivor load imbalance (max/mean): "
           f"{float(bs['imbalance']):.3f} -> "
           f"{float(bs['imbalance_after_compact']):.3f} after compaction")
+    exec_plan = cached.inner if cached is not None else pre.plan
+    if exec_plan.name == "sharded":
+        asg = exec_plan.last_assignment
+        dp = " data_plane=store" if args.data_plane_store else ""
+        print(f"shards={args.shards} transport={args.transport}{dp} "
+              f"lease_items={args.lease_items} "
+              f"redeliveries={exec_plan.redeliveries} "
+              f"speculations={exec_plan.speculations} "
+              f"(lost races {exec_plan.speculations_lost})")
+        if asg is not None:
+            st = asg.stats()
+            print(f"last-round survivor re-shard: "
+                  f"{st['loads_before'].tolist()} -> "
+                  f"{st['loads_after'].tolist()} "
+                  f"(max/min {st['max_min_before']:.2f} -> "
+                  f"{st['max_min_after']:.2f}, moved {st['moved']})")
+        for line in worker_summary(exec_plan.worker_stats):
+            print(line)
     if timings and "in_flight" in timings[0]:
         n = len(timings)
         print("pipeline: " + "  ".join(
@@ -147,6 +230,27 @@ def main(argv=None):
               f"{rep['entries_after']} entries / "
               f"{rep['bytes_after'] / 2**20:.1f} MB retained")
     return tot_kept
+
+
+def worker_summary(worker_stats):
+    """Per-worker lines of the sharded plan's end-of-run summary: queue
+    round-trips against work ids granted, chunks finished, leases still
+    held, redeliveries charged to the worker, its membership state,
+    heartbeat age, and (worker processes only) its idle/busy split."""
+    lines = []
+    for st in worker_stats or ():
+        pid = f" pid={st.pid}" if st.pid else ""
+        beat = ("never" if st.last_beat_age_s is None
+                else f"{st.last_beat_age_s:.1f}s ago")
+        split = (f"  idle {st.idle_s:.1f}s / busy {st.busy_s:.1f}s"
+                 if (st.idle_s or st.busy_s) else "")
+        lines.append(
+            f"worker {st.worker}{pid} [{st.state}]: "
+            f"{st.chunks_done} chunks done, "
+            f"{st.leased_total} leased over {st.lease_calls} round-trips "
+            f"({st.leases_held} still held), "
+            f"{st.redeliveries} redelivered, last beat {beat}{split}")
+    return lines
 
 
 if __name__ == "__main__":

@@ -26,7 +26,7 @@ from repro_torch.configs import SERF_AUDIO as cfg  # noqa: E402
 from repro_torch.core import scheduler as SCHED  # noqa: E402
 from repro_torch.core.plans import (  # noqa: E402
     PLANS, TIMINGS_CAP, AsyncPlan, CachedPlan, FusedPlan, Preprocessor,
-    StreamingPlan, TwoPhasePlan)
+    ShardedPlan, StreamingPlan, TwoPhasePlan)
 from repro_torch.data.loader import audio_batch_maker  # noqa: E402
 
 _MASKS = ("keep", "rain", "silence", "cicada15")
@@ -187,7 +187,7 @@ def test_async_in_order_exactly_once_any_depth(two_phase_22, depth):
 def test_plans_registered_with_reference_defaults():
     assert PLANS == {"fused": FusedPlan, "two_phase": TwoPhasePlan,
                      "streaming": StreamingPlan, "async": AsyncPlan,
-                     "cached": CachedPlan}
+                     "sharded": ShardedPlan, "cached": CachedPlan}
     stream_plan = Preprocessor(cfg, plan="streaming", device="cpu").plan
     assert (stream_plan.depth, stream_plan.emit_buffer, stream_plan.bucket,
             stream_plan.donate) == (1, 0, "linear", False)

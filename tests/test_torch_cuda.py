@@ -386,3 +386,46 @@ def test_cached_plan_on_card_cold_then_warm(card, tmp_path):
     on_cpu = Preprocessor(cfg, plan="cached", store=tmp_path, device="cpu")
     list(on_cpu.run(stream[:1]))
     assert (on_cpu.plan.stats.misses, on_cpu.plan.stats.hits) == (1, 0)
+
+
+def test_sharded_inproc_on_card_matches_cpu(card):
+    """The in-process sharded plan on the card: detection, then the
+    survivors gathered, re-sliced and padded on the device for the staged
+    tail. Masks equal to its CPU run, cleaned audio within 2e-4, and the
+    FIR, STFT and MMSE kernels launched."""
+    stream = _stream(3)
+    want = list(Preprocessor(cfg, plan="sharded", shards=2,
+                             device="cpu").run(stream))
+    pre = Preprocessor(cfg, plan="sharded", shards=2)
+    kernels.reset_launches()
+    got = list(pre.run(stream))
+    counts = kernels.launches()
+    assert all(counts[n] > 0 for n in ("fir_hpf", "stft_dft", "mmse_stsa"))
+    assert [r.wid for r in got] == [r.wid for r in want]
+    for r, w in zip(got, want):
+        for m in ("keep", "rain", "silence", "cicada15"):
+            assert torch.equal(getattr(r.det, m).cpu(), getattr(w.det, m)), m
+        assert r.cleaned.shape == w.cleaned.shape
+        np.testing.assert_allclose(r.cleaned, w.cleaned, rtol=2e-4,
+                                   atol=2e-4)
+    assert sum(r.n_kept for r in got) > 0
+
+
+def test_sharded_cuda_workers_bitwise_equal_two_phase(card):
+    """Two worker processes on the card (each its own CUDA context) run
+    two_phase there: every batch bitwise equal to two_phase in this
+    process, and each worker reports its kernel launches."""
+    stream = _stream(4)
+    want = list(Preprocessor(cfg, plan="two_phase").run(stream))
+    pre = Preprocessor(cfg, plan="sharded", shards=2, transport="proc",
+                       stall_timeout_s=300.0)
+    kernels.reset_launches()
+    got = list(pre.run(stream))
+    assert not any(kernels.launches().values())    # the master ran none
+    _assert_same(got, want)
+    reports = [st.report for st in pre.plan.worker_stats]
+    assert len(reports) == 2 and all(r["device"] == "cuda" for r in reports)
+    assert all(r["cuda_reserved_bytes"] > 0 for r in reports)
+    total = {n: sum(r["launches"][n] for r in reports)
+             for n in kernels.KERNELS}
+    assert all(total[n] > 0 for n in ("fir_hpf", "stft_dft", "fused_tail"))

@@ -1,10 +1,12 @@
-"""The port's own rules: it imports nothing of JAX or the JAX package, its
-entry points do not fall back to the CPU, CPU tensors never launch a
-kernel, and its copies of the reference's config and synthetic data are
-exact."""
+"""The port's own rules: it imports nothing of JAX or the JAX package and
+names no module of the JAX package in a string (a spawn argv such as
+`python -m repro.dist.worker` would run the reference), its entry points do
+not fall back to the CPU, CPU tensors never launch a kernel, and its copies
+of the reference's config and synthetic data are exact."""
 import ast
 import dataclasses
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -43,11 +45,42 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert not {k: v for k, v in bad.items() if v}
 
 
+# a dotted name under the reference package: `repro.` and a module name
+_REFERENCE_MODULE = re.compile(r"(?<![\w.])repro\.[A-Za-z_]")
+
+
+def _reference_module_strings(source, name="<port file>"):
+    """String constants (docstrings included) that name a module of the
+    reference package, such as "repro.dist.worker" in a spawn argv."""
+    return sorted({node.value for node in ast.walk(ast.parse(source, name))
+                   if isinstance(node, ast.Constant)
+                   and isinstance(node.value, str)
+                   and _REFERENCE_MODULE.search(node.value)})
+
+
+def test_port_names_no_reference_module_in_a_string():
+    bad = {str(p.relative_to(ROOT)): _reference_module_strings(
+        p.read_text(), str(p)) for p in PORT_FILES}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+@pytest.mark.parametrize("source,flagged", [
+    ('argv = [sys.executable, "-m", "repro.dist.worker"]', True),
+    ('"""Spawns python -m repro.dist.worker."""', True),
+    ("x = 'see repro.core.plans'", True),
+    ('argv = [sys.executable, "-m", "repro_torch.dist.worker"]', False),
+    ('name = "repro-dist-conn"', False),
+    ("# repro.dist.worker in a comment is not a string", False),
+])
+def test_reference_module_scan_catches_a_spawn_argv(source, flagged):
+    assert bool(_reference_module_strings(source)) is flagged
+
+
 def _entry_points():
     from repro_torch.configs import SERF_AUDIO as cfg
     from repro_torch.core.graph import PipelineGraph
     from repro_torch.core.plans import (CachedPlan, FusedPlan, Preprocessor,
-                                        TwoPhasePlan)
+                                        ShardedPlan, TwoPhasePlan)
     from repro_torch.device import resolve_device
     from repro_torch.launch import preprocess
     return {
@@ -56,13 +89,20 @@ def _entry_points():
         "TwoPhasePlan": lambda: TwoPhasePlan(PipelineGraph(cfg)),
         "FusedPlan": lambda: FusedPlan(PipelineGraph(cfg)),
         "CachedPlan": lambda: CachedPlan(PipelineGraph(cfg)),
+        "ShardedPlan": lambda: ShardedPlan(PipelineGraph(cfg)),
+        "Preprocessor sharded proc": lambda: Preprocessor(
+            cfg, plan="sharded", transport="proc"),
         "launch.preprocess": lambda: preprocess.main(["--minutes", "4"]),
+        "launch.preprocess sharded": lambda: preprocess.main(
+            ["--minutes", "4", "--plan", "sharded", "--transport", "tcp"]),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "Preprocessor",
                                   "TwoPhasePlan", "FusedPlan", "CachedPlan",
-                                  "launch.preprocess"])
+                                  "ShardedPlan", "Preprocessor sharded proc",
+                                  "launch.preprocess",
+                                  "launch.preprocess sharded"])
 def test_entry_points_raise_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; this checks the CPU-only case")
