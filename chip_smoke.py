@@ -278,23 +278,31 @@ def kernel_checks(torch, np, timer, peak_flops):
         cfg.hpf_cutoff_hz, cfg.target_rate_hz, cfg.hpf_taps))
     check(s1["ok"], f"fir_hpf (stride 1): kernel disagrees with its plain "
                     f"version (max |err| {s1['err']:.3g})")
-    c = fir_case(4, 2_646_000, 2, fir_ref.bandpass_decimate_taps(
-        1000.0, 11_025.0, 44_100, 129))
+    band = fir_ref.bandpass_decimate_taps(1000.0, 11_025.0, 44_100, 129)
+    # the serving tier's smallest batch: one long chunk
+    s1b = fir_case(1, 2_646_000, 2, band)
+    check(s1b["ok"], f"fir_hpf (serving batch of 1): kernel disagrees with "
+                     f"its plain version (max |err| {s1b['err']:.3g})")
+    c = fir_case(4, 2_646_000, 2, band)
+
+    def sub(d):
+        return {"shape": d["shape"], "max_abs_err": d["err"], "ms": d["ms"],
+                "plain_ms": d["plain_ms"], "library_ms": d["library_ms"],
+                "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+                "bytes": d["n_bytes"], "flops": d["n_flops"]}
+
     record("fir_hpf", c["shape"], c["err"], c["ok"], c["ms"], c["plain_ms"],
            c["library_ms"], c["n_bytes"], c["n_flops"],
            library_call="torch.nn.functional.conv1d (cuDNN, TF32 off)",
-           stride1={"shape": s1["shape"], "max_abs_err": s1["err"],
-                    "ms": s1["ms"], "plain_ms": s1["plain_ms"],
-                    "library_ms": s1["library_ms"],
-                    "bound_ms": s1["bound_ms"], "bound_by": s1["bound_by"],
-                    "bytes": s1["n_bytes"], "flops": s1["n_flops"]})
+           stride1=sub(s1), serving_batch1=sub(s1b))
 
     # STFT: the detection STFT, (16, 330,750) -> (16, 2582, 129); and the
     # direct-DFT path at windows 382 and 200 on the same rows
-    B, S = 16, 330_750
-    x = torch.randn((B, S), generator=gen, device="cuda") * 0.3
+    S = 330_750
+    x16 = torch.randn((16, S), generator=gen, device="cuda") * 0.3
 
-    def stft_case(W):
+    def stft_case(W, x):
+        B = x.shape[0]
         H, K = W // 2, W // 2 + 1
         got = stft_ops.stft_cuda(x, W, H)
         want = stft_ref.stft_ref(x, W, H)
@@ -329,16 +337,28 @@ def kernel_checks(torch, np, timer, peak_flops):
                library_max_abs_err=c["library_max_abs_err"],
                kernel_over_library=c["kernel_over_library"], **more)
 
-    stft_record("stft_dft", stft_case(cfg.stft_window))
-    c200 = stft_case(200)
+    # the serving tier's smallest batch: one long chunk, 4 detection rows
+    x4 = torch.randn((4, S), generator=gen, device="cuda") * 0.3
+    c4 = stft_case(cfg.stft_window, x4)
+    check(c4["ok"], f"stft_dft (serving batch of 1): kernel disagrees with "
+                    f"its plain version (max |err| {c4['err']:.3g})")
+    stft_record("stft_dft", stft_case(cfg.stft_window, x16),
+                serving_batch1={
+                    k: c4[k] for k in ("shape", "ms", "plain_ms",
+                                       "library_ms", "bound_ms", "bound_by",
+                                       "kernel_over_library")}
+                | {"max_abs_err": c4["err"], "bytes": c4["n_bytes"],
+                   "flops": c4["n_flops"]})
+    del x4
+    c200 = stft_case(200, x16)
     check(c200["ok"], f"stft_dft_generic (W=200): kernel disagrees with its "
                       f"plain version (max |err| {c200['err']:.3g})")
-    stft_record("stft_dft_generic", stft_case(382), w200={
+    stft_record("stft_dft_generic", stft_case(382, x16), w200={
         k: c200[k] for k in ("shape", "ms", "plain_ms", "library_ms",
                              "bound_ms", "bound_by", "kernel_over_library")}
         | {"max_abs_err": c200["err"], "bytes": c200["n_bytes"],
            "flops": c200["n_flops"]})
-    del x
+    del x16
 
     # MMSE gain: the staged survivor tail, power (16, 860, 129), and
     # (35, 860, 129), the main path's largest survivor batch
@@ -389,11 +409,12 @@ def kernel_checks(torch, np, timer, peak_flops):
     # fused tail: wave (48, 110,250), 16 indices with one pad slot, and all
     # 48 rows; with and without the high-pass; noise_est_frames = 100; and
     # the direct-DFT kernel at windows 382 and 200
-    B, S = 48, 110_250
-    wave = torch.randn((B, S), generator=gen, device="cuda") * 0.3
-    real = np.sort(np.random.RandomState(7).choice(B, 15, replace=False))
+    S = 110_250
+    wave48 = torch.randn((48, S), generator=gen, device="cuda") * 0.3
+    real = np.sort(np.random.RandomState(7).choice(48, 15, replace=False))
 
-    def fused_case(idx_np, tcfg, hpf, time_plain=True):
+    def fused_case(idx_np, tcfg, hpf, time_plain=True, wave=wave48):
+        B = wave.shape[0]
         W, H = tcfg.stft_window, tcfg.stft_hop
         K = W // 2 + 1
         Fv = stft_ref.num_frames(S, W, H)
@@ -436,8 +457,8 @@ def kernel_checks(torch, np, timer, peak_flops):
                 else None),
             n_bytes=n_bytes, n_flops=n_flops, bound_ms=b_ms, bound_by=b_by)
 
-    idx16 = [*real.tolist(), B]
-    idx48 = list(range(B))
+    idx16 = [*real.tolist(), 48]
+    idx48 = list(range(48))
     noise100 = dataclasses.replace(cfg, noise_est_frames=100)
     cases = {"hpf": fused_case(idx16, cfg, True),
              "rows48": fused_case(idx48, cfg, False, time_plain=False),
@@ -445,7 +466,13 @@ def kernel_checks(torch, np, timer, peak_flops):
              "noise100": fused_case(idx16, noise100, False,
                                     time_plain=False),
              "noise100_hpf": fused_case(idx16, noise100, True,
-                                        time_plain=False)}
+                                        time_plain=False),
+             # the serving tier's smallest batch: one long chunk is 12
+             # final chunks, 8 of them survivors
+             "serving_batch1": fused_case(
+                 np.sort(np.random.RandomState(8).choice(12, 8,
+                                                         replace=False)),
+                 cfg, False, wave=wave48[:12].contiguous())}
     v = fused_case(idx16, cfg, False)
     cfg382 = dataclasses.replace(cfg, **W382)
     generic = {"hpf": fused_case(idx16, cfg382, True, time_plain=False),
@@ -850,6 +877,7 @@ def main_path(torch, np, card):
     del cells, results, cpu_pre, cpu
     stream8 = batches + [(w, make(w)) for w in range(3, PROC_BATCHES)]
     runs.update(proc_cells(torch, np, stream8, base, card))
+    runs.update(serve_cells(torch, np, batches, base, stream8))
     return runs
 
 
@@ -892,28 +920,47 @@ def check_workers_on_card(label, pids, during, after):
     return f"memory freed at exit: {freed:.0f} MiB"
 
 
+def plane_bytes():
+    """The data-plane bytes this process's metrics registry has counted
+    so far: fetched and pushed, through the master's socket and the
+    store."""
+    from repro_torch.obs import metrics as obs_metrics
+    snap = obs_metrics.get_registry().snapshot()
+    out = {}
+    for d in ("fetch", "push"):
+        series = snap.get(f"dist_{d}_bytes_total", {"series": []})["series"]
+        for plane in ("socket", "store"):
+            out[f"{d}_bytes_{plane}"] = sum(
+                x["value"] for x in series if x["labels"]["plane"] == plane)
+    return out
+
+
 def proc_pass(pre, batches, watch=None):
     """One run of a proc cell over the stream, as a user makes it: the
     fleet's spawn, the 8 batches, the workers' sign-off. Returns (results,
     wall seconds, what `watch` returned when it was called once, after
-    the first result, while the fleet still ran)."""
+    the first result, while the fleet still ran, the data-plane bytes the
+    run moved)."""
     dp = pre.plan.data_plane
     if dp is not None:
         shutil.rmtree(dp, ignore_errors=True)
+    before = plane_bytes()
     t0 = time.perf_counter()
     out, seen = [], None
     for r in pre.run(batches):
         out.append(r)
         if watch is not None and len(out) == 1:
             seen = watch()
-    return out, time.perf_counter() - t0, seen
+    wall = time.perf_counter() - t0
+    moved = {k: v - before[k] for k, v in plane_bytes().items()}
+    return out, wall, seen, moved
 
 
-def fleet_record(plan):
+def fleet_record(plan, moved):
     """What one proc run's master saw: the fleet's start (run() to the
     last hello), each worker's idle/busy split and launches, and the
-    data-plane bytes through the master's socket and the store."""
-    c = plan.fleet.service.metrics()["counters"]
+    data-plane bytes through the master's socket and the store (`moved`,
+    from `proc_pass`)."""
     return {"fleet_start_s": plan.fleet_start_s,
             "redeliveries": plan.redeliveries,
             "workers": [{"worker": st.worker, "pid": st.pid,
@@ -923,9 +970,7 @@ def fleet_record(plan):
                          "cuda_reserved_bytes": (st.report or {}).get(
                              "cuda_reserved_bytes")}
                         for st in plan.worker_stats],
-            "bytes": {k: c[k] for k in (
-                "fetch_bytes_socket", "push_bytes_socket",
-                "fetch_bytes_store", "push_bytes_store")}}
+            "bytes": moved}
 
 
 def proc_cells(torch, np, batches, base, card):
@@ -948,11 +993,11 @@ def proc_cells(torch, np, batches, base, card):
     for label, pre in cells.items():
         check(pre.device.type == "cuda", "Preprocessor did not pick the card")
         kernels.reset_launches()
-        res, wall, during = proc_pass(pre, batches, watch=gpu_apps)
+        res, wall, during, moved = proc_pass(pre, batches, watch=gpu_apps)
         master = kernels.launches()
         time.sleep(1.0)             # the exited workers' contexts freed
         after = gpu_apps()
-        fleet = fleet_record(pre.plan)
+        fleet = fleet_record(pre.plan, moved)
         reports = [st.report or {} for st in pre.plan.worker_stats]
         launches = {n: sum(r.get("launches", {}).get(n, 0) for r in reports)
                     for n in kernels.KERNELS}
@@ -998,9 +1043,9 @@ def proc_cells(torch, np, batches, base, card):
     fleets = {label: [] for label in cells}
     for rep in range(PROC_PASSES):
         for label in (list(cells) if rep % 2 == 0 else list(cells)[::-1]):
-            _, wall, _ = proc_pass(cells[label], batches)
+            _, wall, _, moved = proc_pass(cells[label], batches)
             pass_times[label].append(wall)
-            fleets[label].append(fleet_record(cells[label].plan))
+            fleets[label].append(fleet_record(cells[label].plan, moved))
     for label, pre in cells.items():
         mb_per_s = sorted(src / 2**20 / s for s in pass_times[label])
         med = statistics.median(mb_per_s)
@@ -1048,10 +1093,10 @@ def sharded_proc_kill(np, batches, want):
     inj.kill(1, after_items=1)
     pre = Preprocessor(SERF_AUDIO, plan="sharded", shards=2,
                        transport="proc", lease_items=1, injector=inj)
-    res, wall, _ = proc_pass(pre, batches)
+    res, wall, _, moved = proc_pass(pre, batches)
     rec = {"sharded_proc_kill": {
         "emitted": [r.wid for r in res], "wall_s": wall,
-        "killed_alive": inj.alive(1), **fleet_record(pre.plan)}}
+        "killed_alive": inj.alive(1), **fleet_record(pre.plan, moved)}}
     print(json.dumps(rec), flush=True)
     check([r.wid for r in res] == list(range(len(batches))),
           f"sharded_proc_kill: emitted {[r.wid for r in res]}, not every "
@@ -1065,6 +1110,426 @@ def sharded_proc_kill(np, batches, want):
               f"sharded_proc_kill: batch {r.wid} differs from the unkilled "
               f"run (bitwise)")
     return rec
+
+# ------------------------------------------------------- the serving cells
+
+SERVE_WAVES = 3
+SERVE_CLIENTS = 4
+SERVE_PER_CLIENT = 3            # 4 clients x 3 requests = 12 a wave
+SERVE_NEED = ("fir_hpf", "stft_dft", "fused_tail")
+OBS_PASSES = 3                  # timed passes each with observability on / off
+
+
+def serve_wave(np, batcher, chunks):
+    """One wave of 12 requests: SERVE_CLIENTS threads each send
+    SERVE_PER_CLIENT single long chunks one after another (submit, wait
+    for the answer, the next); client c's request i is chunk
+    c * SERVE_PER_CLIENT + i. Returns (record by request id, chunk index
+    by request id, latencies in s, wall s)."""
+    import threading
+    recs, which, lat, errors = {}, {}, [], []
+    lock = threading.Lock()
+
+    def client(c):
+        try:
+            for i in range(SERVE_PER_CLIENT):
+                k = c * SERVE_PER_CLIENT + i
+                t0 = time.perf_counter()
+                rid = batcher.submit(chunks[k])
+                rec = batcher.wait(rid, timeout_s=300.0)
+                dt = time.perf_counter() - t0
+                with lock:
+                    if rid in recs:
+                        errors.append(f"request {rid} answered twice")
+                    recs[rid], which[rid] = rec, k
+                    lat.append(dt)
+        except Exception as e:          # reported, then the phase fails
+            errors.append(f"client {c}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(not errors, f"serving wave failed: {errors}")
+    return recs, which, lat, wall
+
+
+def wave_record(np, i, log, lat, wall, pids):
+    """What one wave showed: wall time, requests a second, request latency
+    p50 and max (a wave holds 12 requests: too few for a p99; the cell
+    reports its p99 over all its waves), the batches by occupancy (real
+    rows / padded rows) and the workers' pids."""
+    occ = {}
+    for e in log:
+        key = f"{e['n_real']}/{e['rows']}"
+        occ[key] = occ.get(key, 0) + 1
+    return {"wave": i, "requests": len(lat), "wall_s": wall,
+            "req_per_s": len(lat) / wall,
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "max_ms": float(np.max(lat)) * 1e3,
+            "batches": len(log), "occupancy": occ, "pids": pids}
+
+
+def latency_record(np, lats):
+    """Request latency over every wave of a cell, in ms."""
+    return {"requests": len(lats),
+            "p50_ms": float(np.percentile(lats, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lats, 99)) * 1e3,
+            "max_ms": float(np.max(lats)) * 1e3}
+
+
+def check_served(np, label, log, recs, which, chunks, two_phase):
+    """Every request answered once, ok, and in exactly one dispatched
+    batch; every batch, rebuilt from `batch_log` with its zero pad rows
+    and run through the in-process fused two_phase on the card, gives
+    each of its requests the masks and cleaned rows it was served, bitwise.
+    Returns the number of batches checked."""
+    rids = sorted(r for e in log for r in e["rids"])
+    check(rids == sorted(recs), f"{label}: the batches hold requests "
+                                f"{rids}, not each answered one once")
+    bad = [rid for rid, rec in recs.items() if not rec["ok"]]
+    check(not bad, f"{label}: requests {bad} were not served")
+    for e in log:
+        batch = np.stack([chunks[which[r]] for r in e["rids"]])
+        if e["rows"] > len(e["rids"]):
+            batch = np.concatenate([batch, np.zeros(
+                (e["rows"] - len(e["rids"]),) + batch.shape[1:],
+                np.float32)])
+        res = two_phase(batch)
+        masks = {m: getattr(res.det, m).cpu().numpy()
+                 for m in ("keep", "rain", "silence")}
+        per = masks["keep"].size // e["rows"]
+        offs = np.concatenate([[0], np.cumsum(masks["keep"])]).astype(int)
+        for j, rid in enumerate(e["rids"]):
+            lo, hi = j * per, (j + 1) * per
+            rec = recs[rid]
+            for m, v in masks.items():
+                check(np.array_equal(rec[m], v[lo:hi]),
+                      f"{label}: request {rid}'s {m} mask differs from the "
+                      f"in-process two_phase on its batch")
+            check(np.array_equal(rec["cleaned"],
+                                 res.cleaned[offs[lo]:offs[hi]]),
+                  f"{label}: request {rid}'s cleaned rows differ from the "
+                  f"in-process two_phase on its batch (bitwise)")
+    return len(log)
+
+
+def wait_for_hellos(pool, n, timeout_s=180.0):
+    """Seconds from now until `n` workers have signed in to the pool."""
+    deadline = time.monotonic() + timeout_s
+    while len(pool.service.workers) < n:
+        check(time.monotonic() < deadline,
+              f"only {len(pool.service.workers)} of {n} workers signed in "
+              f"within {timeout_s:.0f} s")
+        check(len(pool.pids) == n, "a pool worker exited before its hello")
+        time.sleep(0.01)
+
+
+def serve_cell(torch, np, label, transport, chunks, two_phase):
+    """A WorkerPool of 2 workers (threads of this process, or processes
+    on the one card) behind ContinuousBatcher(max_batch=4, linger_s=0.02),
+    3 waves of 12 requests on the same pool. The launch counts are set to
+    0 before the pool starts and read after it shut down: in the proc
+    cell the master's stay 0 and the workers report theirs at sign-off."""
+    from repro_torch import kernels
+    from repro_torch.configs import SERF_AUDIO
+    from repro_torch.serve import ContinuousBatcher, WorkerPool
+
+    procs = transport == "proc"
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    pool = WorkerPool(SERF_AUDIO, workers=2, transport=transport,
+                      poll_s=0.002).start()
+    ok = False
+    try:
+        check(pool.device.type == "cuda", f"{label}: the pool is not on "
+                                          f"the card")
+        fleet_start_s = None
+        if procs:
+            wait_for_hellos(pool, 2)
+            fleet_start_s = max(st.joined_at for st in
+                                pool.service.workers.values()) - t0
+        batcher = ContinuousBatcher(pool=pool, max_batch=4, linger_s=0.02)
+        waves, recs, which, lats = [], {}, {}, []
+        with batcher:
+            for i in range(SERVE_WAVES):
+                n0 = len(batcher.batch_log)
+                r, w, lat, wall = serve_wave(np, batcher, chunks)
+                recs.update(r)
+                which.update(w)
+                lats += lat
+                pids = sorted(pool.pids.values()) if procs else [os.getpid()]
+                waves.append(wave_record(np, i, list(batcher.batch_log)[n0:],
+                                         lat, wall, pids))
+                print(json.dumps({label: waves[-1]}), flush=True)
+        log = list(batcher.batch_log)
+        stats = batcher.stats()
+        during = gpu_apps() if procs else None
+        ok = True
+    finally:
+        pool.shutdown(drain=ok)
+    master = kernels.launches()
+    rec = {"main_path": label, "plan": "serve", "transport": transport,
+           "workers": 2, "max_batch": 4, "linger_s": 0.02,
+           "fleet_start_s": fleet_start_s, "waves": waves,
+           "latency": latency_record(np, lats), "batcher": stats,
+           "master_launches": master}
+    if procs:
+        time.sleep(1.0)             # the exited workers' contexts freed
+        after = gpu_apps()
+        reports = [st.report or {} for st in pool.worker_stats]
+        pids = sorted(st.pid for st in pool.worker_stats)
+        rec.update(
+            launches={n: sum(r.get("launches", {}).get(n, 0)
+                             for r in reports) for n in kernels.KERNELS},
+            worker_reports=[{"worker": st.worker, "pid": st.pid,
+                             "chunks_done": st.chunks_done,
+                             "device": (st.report or {}).get("device"),
+                             "launches": (st.report or {}).get("launches"),
+                             "cuda_reserved_bytes": (st.report or {}).get(
+                                 "cuda_reserved_bytes"),
+                             "idle_s": st.idle_s, "busy_s": st.busy_s}
+                            for st in pool.worker_stats],
+            gpu_apps_during=during, gpu_apps_after=after,
+            workers_on_card=check_workers_on_card(label, pids, during,
+                                                  after))
+        check(all(w["pids"] == waves[0]["pids"] for w in waves)
+              and len(waves[0]["pids"]) == 2,
+              f"{label}: the workers' pids changed between waves "
+              f"{[w['pids'] for w in waves]}")
+        check(not any(master.values()),
+              f"{label}: the master launched kernels {master}")
+        check(len(reports) == 2 and all(r.get("device") == "cuda"
+                                        for r in reports),
+              f"{label}: the workers did not all sign off from the card")
+        check(all((r.get("cuda_reserved_bytes") or 0) > 0 for r in reports),
+              f"{label}: a worker held no memory on the card at sign-off")
+    else:
+        rec["launches"] = master
+    for n in SERVE_NEED:
+        check(rec["launches"][n] > 0, f"{label}: kernel {n} was never "
+                                      f"launched")
+    check(len(recs) == SERVE_WAVES * SERVE_CLIENTS * SERVE_PER_CLIENT,
+          f"{label}: {len(recs)} requests answered")
+    rec["batches_checked"] = check_served(np, label, log, recs, which,
+                                          chunks, two_phase)
+    print(json.dumps(rec), flush=True)
+    for w in waves:
+        print(f"{label} wave {w['wave']}: {w['requests']} requests in "
+              f"{w['wall_s']:.3f} s ({w['req_per_s']:.2f} req/s), latency "
+              f"p50 {w['p50_ms']:.1f} ms max {w['max_ms']:.1f} ms, "
+              f"occupancy {w['occupancy']}, pids {w['pids']}", flush=True)
+    la = rec["latency"]
+    print(f"{label}: latency over the {la['requests']} requests p50 "
+          f"{la['p50_ms']:.1f} ms p99 {la['p99_ms']:.1f} ms max "
+          f"{la['max_ms']:.1f} ms", flush=True)
+    if fleet_start_s is not None:
+        print(f"{label}: fleet start {fleet_start_s:.3f} s (pool start to "
+              f"the last hello)", flush=True)
+    return rec
+
+
+def serve_proc_kill(torch, np, chunks, two_phase):
+    """A proc pool of 2 with respawn: shard 0 is SIGKILLed the moment it
+    is granted its first lease, holding it. Every request must be served
+    once and bitwise, the lease redelivered, one respawn, and the new
+    shard 0 process must sign off from the card. The waves' records keep
+    their latencies: the respawn shows in them."""
+    from repro_torch.configs import SERF_AUDIO
+    from repro_torch.serve import ContinuousBatcher, WorkerPool
+
+    pool = WorkerPool(SERF_AUDIO, workers=2, transport="proc", poll_s=0.002,
+                      respawn=True).start()
+    killed = []
+    ok = False
+    try:
+        wait_for_hellos(pool, 2)
+        first_pid = pool.pids[0]
+
+        def on_grant(worker, wid):
+            if worker == "shard0" and not killed:
+                killed.append(wid)
+                pool.kill_worker(0)
+
+        pool.service.on_grant = on_grant
+        batcher = ContinuousBatcher(pool=pool, max_batch=4, linger_s=0.02)
+        recs, which, log, waves, lats = {}, {}, [], [], []
+        with batcher:
+            for i in range(SERVE_WAVES):       # until shard 0 took a lease
+                n0 = len(batcher.batch_log)
+                r, w, lat, wall = serve_wave(np, batcher, chunks)
+                recs.update(r)
+                which.update(w)
+                lats += lat
+                waves.append(wave_record(np, i, list(batcher.batch_log)[n0:],
+                                         lat, wall, sorted(pool.pids.values())))
+                if killed:
+                    break
+        log = list(batcher.batch_log)
+        ok = True
+    finally:
+        pool.shutdown(drain=ok)
+    st0 = pool.service.workers["shard0"]
+    rec = {"serve_proc_kill": {
+        "killed_at_wid": killed, "killed_pid": first_pid,
+        "respawned_pid": st0.pid, "respawns": pool.respawns,
+        "redeliveries": pool.queue.redeliveries, "requests": len(recs),
+        "respawned_device": (st0.report or {}).get("device"),
+        "respawned_launches": (st0.report or {}).get("launches"),
+        "waves": waves, "latency": latency_record(np, lats)}}
+    print(json.dumps(rec), flush=True)
+    check(killed, "serve_proc_kill: shard 0 never took a lease")
+    check(pool.respawns == 1, f"serve_proc_kill: {pool.respawns} respawns, "
+                              f"not 1")
+    check(pool.queue.redeliveries >= 1,
+          "serve_proc_kill: the killed worker's lease was not redelivered")
+    check(st0.pid != first_pid and (st0.report or {}).get("device")
+          == "cuda", "serve_proc_kill: the respawned shard 0 did not sign "
+                     "off from the card")
+    check_served(np, "serve_proc_kill", log, recs, which, chunks, two_phase)
+    return rec
+
+
+def obs_phase(torch, np, batches, base, stream8):
+    """The fused two_phase cell with the metrics registry, a tracer and
+    telemetry on against all off, OBS_PASSES passes each in turns: the
+    output bitwise equal to the main path's fused cell both ways, the trace
+    through `validate_chrome_trace`, one telemetry "done" record per work
+    id, the MB/s of on over off (reported, not gated). Then one pass of
+    the serf_sharded_proc cell under a tracer: the workers' lease / fetch
+    / compute / push spans must arrive parented under the master's run
+    span."""
+    from repro_torch.configs import SERF_AUDIO
+    from repro_torch.core.plans import Preprocessor
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import telemetry as obs_telemetry
+    from repro_torch.obs import tracing as obs_tracing
+
+    out_dir = ROOT / "build" / "chip_smoke" / "obs"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    src = sum(c.nbytes for _, (c, _) in batches)
+    pre = Preprocessor(SERF_AUDIO, plan="two_phase")
+    list(pre.run(batches[:1]))                     # warm-up
+    torch.cuda.synchronize()
+    prev = obs_metrics.get_registry()
+
+    def one_pass(on, k):
+        reg = obs_metrics.MetricsRegistry() if on else \
+            obs_metrics.NullRegistry()
+        obs_metrics.set_registry(reg)
+        tracer = obs_tracing.Tracer() if on else None
+        obs_tracing.set_tracer(tracer)
+        writer = (obs_telemetry.TelemetryWriter(out_dir / f"telemetry{k}")
+                  if on else None)
+        try:
+            if tracer is not None:
+                tracer.start_run("obs_run")
+            t0 = time.perf_counter()
+            out = []
+            for r in pre.run(batches):
+                out.append(r)
+                if writer is not None:
+                    obs_telemetry.record_result(writer, r.wid, r)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if tracer is not None:
+                tracer.finish_run()
+        finally:
+            obs_metrics.set_registry(prev)
+            obs_tracing.set_tracer(None)
+            if writer is not None:
+                writer.close()
+        return out, dt, reg, tracer
+
+    times = {True: [], False: []}
+    for k in range(OBS_PASSES):
+        for on in ((False, True) if k % 2 == 0 else (True, False)):
+            out, dt, reg, tracer = one_pass(on, k)
+            times[on].append(dt)
+            for a, b in zip(base, out):
+                check_masks(a.det, b.det, f"obs (on={on}) against two_phase's")
+                check(np.array_equal(a.cleaned, b.cleaned),
+                      f"obs: with observability on={on} batch {b.wid} "
+                      f"differs from the fused two_phase cell (bitwise)")
+            if not on:
+                continue
+            counts = obs_tracing.validate_chrome_trace(tracer.chrome())
+            tracer.save(out_dir / "trace_two_phase.json")
+            recs = obs_telemetry.read_records(str(out_dir / f"telemetry{k}"))
+            done = sorted(r["wid"] for r in recs if r["status"] == "done")
+            check(done == [w for w, _ in batches],
+                  f"obs: telemetry done records for wids {done}")
+            (nb,) = reg.snapshot()["plan_batches_total"]["series"]
+            check(nb["value"] == len(batches),
+                  f"obs: plan_batches_total is {nb['value']}")
+    mb = {on: sorted(src / 2**20 / t for t in times[on]) for on in times}
+    ratio = statistics.median(mb[True]) / statistics.median(mb[False])
+
+    # one serf_sharded_proc pass under a tracer
+    tracer = obs_tracing.Tracer()
+    obs_tracing.set_tracer(tracer)
+    try:
+        tracer.start_run("sharded_proc_run")
+        sp = Preprocessor(SERF_AUDIO, plan="sharded", shards=2,
+                          transport="proc", lease_items=1)
+        res = list(sp.run(stream8))
+        tracer.finish_run()
+    finally:
+        obs_tracing.set_tracer(None)
+    trace = tracer.chrome()
+    phases = obs_tracing.validate_chrome_trace(trace)
+    tracer.save(out_dir / "trace_sharded_proc.json")
+    pids = {st.pid for st in sp.plan.worker_stats}
+    worker_evs = [e for e in trace["traceEvents"] if e["pid"] in pids]
+    names = sorted({e["name"] for e in worker_evs})
+    orphans = [e["name"] for e in worker_evs
+               if e["args"].get("trace") != tracer.trace_id
+               or (e["ph"] != "E"
+                   and e["args"].get("parent") != tracer.run_span_id)]
+    rec = {"obs": {"passes": OBS_PASSES, "mb_per_s_on": mb[True],
+                   "mb_per_s_off": mb[False], "on_over_off": ratio,
+                   "trace_events": counts, "bitwise": True,
+                   "sharded_proc": {"trace_phases": phases,
+                                    "worker_pids": sorted(pids),
+                                    "worker_events": len(worker_evs),
+                                    "worker_span_names": names,
+                                    "orphans": orphans[:10]}}}
+    print(json.dumps(rec), flush=True)
+    print(f"obs: two_phase fused with metrics + tracing + telemetry on "
+          f"{statistics.median(mb[True]):.2f} MB/s against off "
+          f"{statistics.median(mb[False]):.2f} MB/s (on/off {ratio:.3f}, "
+          f"median of {OBS_PASSES} passes each); output bitwise equal",
+          flush=True)
+    check([r.wid for r in res] == list(range(len(stream8))),
+          "obs: the traced sharded proc pass did not emit every wid once")
+    for a, b in zip(base, res):
+        check(np.array_equal(a.cleaned, b.cleaned),
+              f"obs: the traced sharded proc pass differs at batch {b.wid}")
+    check({"lease", "fetch_many", "compute", "push"} <= set(names),
+          f"obs: the workers' spans are missing from the trace ({names})")
+    check(not orphans, f"obs: worker spans not parented under the run "
+                       f"span: {orphans[:10]}")
+    return rec
+
+
+def serve_cells(torch, np, batches, base, stream8):
+    """The serving cells on the main path's 12 long chunks, the kill
+    phase, then the observability phase."""
+    from repro_torch.configs import SERF_AUDIO
+    from repro_torch.core.plans import Preprocessor
+    chunks = [c for _, (cs, _) in batches for c in cs]
+    two_phase = Preprocessor(SERF_AUDIO, plan="two_phase")
+    runs = {label: serve_cell(torch, np, label, transport, chunks,
+                              two_phase)
+            for label, transport in (("serf_serve_inproc", "inproc"),
+                                     ("serf_serve_proc", "proc"))}
+    serve_proc_kill(torch, np, chunks, two_phase)
+    obs_phase(torch, np, batches, base, stream8)
+    return runs
 
 
 def check_masks(a, b, what):

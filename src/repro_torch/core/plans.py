@@ -50,6 +50,21 @@ a non-canonical tail.
 
 The port runs eagerly: no compile cache. Bucketing (`bucket`, `pad_multiple`)
 still decides the tail's row count, as in the reference.
+
+Observability (`repro_torch.obs`), as in the reference: every plan reports
+each batch it emits into the process's metrics registry (`_record_batch`:
+`plan_batches_total`, `plan_chunks_total`, `plan_survivors_total`,
+`plan_src_bytes_total`, `plan_{d2h,h2d}_bytes_total`, all labelled
+`{plan=...}`, and the `plan_stage_seconds{plan,stage}` histogram of the
+numbers `BatchResult.timings` carries), and opens spans on the run's
+tracer: `fused_batch`, `detect_dispatch` (the async window fill), `tail`
+(mask readback, compaction, tail enqueue), `emit` (the cleaned readback),
+`tail_rebalanced`; the sharded plan's process master marks `accept` and
+`emit_gated` instants. The hooks read only what the host already holds
+(`.numel()`, never a copy), so they add no synchronisation of the card;
+with the registry disabled each costs one attribute check. `ShardedPlan`
+takes `telemetry=` (a `TelemetryWriter`), which its `QueueService` writes
+per chunk at acceptance.
 """
 from __future__ import annotations
 
@@ -69,15 +84,19 @@ from repro_torch.core.graph import (GraphValidationError, PipelineGraph,
                                     PipelineOutput)
 from repro_torch.data.loader import ShardedLoader, make_shard_pool
 from repro_torch.data.queue import WorkQueue
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, worker_env
 from repro_torch.dist.data_plane import StoreDataPlane
 from repro_torch.dist.service import QueueService, pack_result, unpack_result
 from repro_torch.dist.transport import ProcTransport, TcpTransport
 from repro_torch.ft.failure import StragglerDetector
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
 from repro_torch.store import ChunkStore, RunJournal, content_key
 
 # Cap on the per-batch timing dicts `AsyncPlan.last_timings` keeps.
 TIMINGS_CAP = 4096
+
+_STAGE_KEYS = ("dispatch_s", "readback_s", "compact_s", "tail_s", "emit_s")
 
 
 @dataclass
@@ -104,6 +123,40 @@ class BatchResult:
     #   tail_rows / n_real      padded tail batch rows vs real survivors
     #   wave5_bytes, old_boundary_bytes   the full pre-denoise batch and
     #               what a host-side compaction round trip would have moved
+
+
+def _record_batch(plan_name, res: BatchResult):
+    """Mirror one emitted batch into the metrics registry: counters for
+    volume, the `plan_stage_seconds` histogram for the per-batch timings.
+    The chunk count is the keep mask's `numel()`, which a tensor on the
+    card gives without a copy."""
+    reg = obs_metrics.get_registry()
+    if not reg.enabled:
+        return
+    lab = {"plan": plan_name}
+    reg.counter("plan_batches_total", "batches emitted",
+                ("plan",)).labels(**lab).inc()
+    if res.det is not None:
+        keep = res.det.keep
+        n = keep.numel() if torch.is_tensor(keep) else int(np.size(keep))
+        reg.counter("plan_chunks_total", "chunks processed",
+                    ("plan",)).labels(**lab).inc(n)
+    reg.counter("plan_survivors_total", "chunks surviving detection",
+                ("plan",)).labels(**lab).inc(int(res.n_kept))
+    reg.counter("plan_src_bytes_total", "input bytes consumed",
+                ("plan",)).labels(**lab).inc(int(res.src_bytes))
+    t = res.timings
+    if not t:
+        return
+    for k in _STAGE_KEYS:
+        if k in t:
+            reg.histogram("plan_stage_seconds", "per-batch stage wall time",
+                          ("plan", "stage")).labels(
+                plan=plan_name, stage=k[:-2]).observe(t[k])
+    for k in ("d2h_bytes", "h2d_bytes"):
+        if k in t:
+            reg.counter(f"plan_{k}_total", "host-boundary traffic",
+                        ("plan",)).labels(**lab).inc(int(t[k]))
 
 
 def _iter_batches(batches):
@@ -179,13 +232,16 @@ class FusedPlan(ExecutionPlan):
     name = "fused"
 
     def __call__(self, audio) -> BatchResult:
-        x = self._to_device(audio)
-        out = self.graph.fused(x)
-        keep = out.keep.cpu().numpy()
-        idx = torch.from_numpy(np.flatnonzero(keep)).to(out.wave5.device)
-        cleaned = out.wave5.index_select(0, idx).cpu().numpy()
-        return BatchResult(cleaned=cleaned, det=out, n_kept=int(keep.sum()),
-                           src_bytes=x.numel() * x.element_size())
+        with obs_tracing.span("fused_batch"):
+            x = self._to_device(audio)
+            out = self.graph.fused(x)
+            keep = out.keep.cpu().numpy()
+            idx = torch.from_numpy(np.flatnonzero(keep)).to(out.wave5.device)
+            cleaned = out.wave5.index_select(0, idx).cpu().numpy()
+        res = BatchResult(cleaned=cleaned, det=out, n_kept=int(keep.sum()),
+                          src_bytes=x.numel() * x.element_size())
+        _record_batch(self.name, res)
+        return res
 
 
 class TwoPhasePlan(ExecutionPlan):
@@ -252,6 +308,10 @@ class TwoPhasePlan(ExecutionPlan):
         the keep mask, builds a padded survivor-index vector, and the tail
         gathers + denoises on the device; its n_real real rows start back
         to the host at once."""
+        with obs_tracing.span("tail", wid=d.wid):
+            return self._start_tail_inner(d)
+
+    def _start_tail_inner(self, d: _Detected) -> _PendingTail:
         t0 = time.perf_counter()
         keep = d.keep.wait()                          # the only readback
         t1 = time.perf_counter()
@@ -283,11 +343,13 @@ class TwoPhasePlan(ExecutionPlan):
         result. Only the real rows come back; pad rows are zero rows of
         the device tail and never reach `cleaned`."""
         t0 = time.perf_counter()
-        if pend.cleaned is None:
-            cleaned = np.zeros((0, pend.det.wave5.shape[-1]), np.float32)
-        else:
-            cleaned = pend.cleaned.wait()
-            pend.timings["d2h_bytes"] += cleaned.nbytes
+        with obs_tracing.span("emit", wid=pend.wid):
+            if pend.cleaned is None:
+                cleaned = np.zeros((0, pend.det.wave5.shape[-1]),
+                                   np.float32)
+            else:
+                cleaned = pend.cleaned.wait()
+                pend.timings["d2h_bytes"] += cleaned.nbytes
         pend.timings["emit_s"] = time.perf_counter() - t0
         # what the reference's host-side compaction round trip would have
         # moved for this batch: the full wave5 and mask down, the
@@ -299,10 +361,12 @@ class TwoPhasePlan(ExecutionPlan):
         row_bytes = cleaned.shape[-1] * cleaned.dtype.itemsize
         pend.timings["old_boundary_bytes"] = (
             pend.timings["wave5_bytes"] + cap + 2 * lin_rows * row_bytes)
-        return BatchResult(cleaned=cleaned, det=pend.det,
-                           n_kept=pend.n_real, wid=pend.wid,
-                           labels=pend.extra, src_bytes=pend.src_bytes,
-                           timings=pend.timings)
+        res = BatchResult(cleaned=cleaned, det=pend.det,
+                          n_kept=pend.n_real, wid=pend.wid,
+                          labels=pend.extra, src_bytes=pend.src_bytes,
+                          timings=pend.timings)
+        _record_batch(self.name, res)
+        return res
 
     def _finish(self, det: PipelineOutput, src_bytes=0) -> BatchResult:
         return self._emit(self._start_tail(_Detected(
@@ -358,7 +422,8 @@ class AsyncPlan(TwoPhasePlan):
         for wid, chunks, extra in _iter_batches(batches):
             t0 = time.perf_counter()
             in_flight = len(dets) + 1
-            d = self._dispatch(chunks, wid, extra)
+            with obs_tracing.span("detect_dispatch", wid=wid):
+                d = self._dispatch(chunks, wid, extra)
             d.timings.update(dispatch_s=time.perf_counter() - t0,
                              in_flight=in_flight)
             dets.append(d)
@@ -427,7 +492,7 @@ STRAGGLER_MIN_HISTORY = 4
 class FleetControl:
     """Live handle on a process fleet, published as `plan.fleet` while
     `ShardedPlan._run_proc` runs (and left in place afterwards for the
-    service's counters): spawn a late joiner, drain a worker out
+    service's worker ledger): spawn a late joiner, drain a worker out
     gracefully, or SIGKILL one. A late joiner goes through the same
     `spawn_worker` + `hello` as the original fleet."""
 
@@ -455,7 +520,7 @@ class FleetControl:
             self._next = max(self._next, int(shard) + 1)
         h = self.transport.spawn_worker(
             shard, lease_items=self.plan.lease_items,
-            env_extra=self.plan._worker_env(int(shard)))
+            env_extra=worker_env(self.plan.device, int(shard)))
         self.service.reserve(h.pid, int(shard))
         self.handles[int(shard)] = h
         if self.plan.injector is not None:
@@ -513,15 +578,17 @@ class ShardedPlan(TwoPhasePlan):
 
     `__call__` (the serve path) always row-splits in-process. The
     reference's per-shard `rules` pool has no counterpart yet: every
-    in-process shard runs on this plan's device. The reference's
-    `telemetry=` comes with the observability slice.
+    in-process shard runs on this plan's device. `telemetry` (a
+    `obs.telemetry.TelemetryWriter`) goes to the QueueService of either
+    mode, which writes the per-chunk records on the master.
     """
     name = "sharded"
 
     def __init__(self, graph, pad_multiple=1, shards=2, lease_items=1,
                  injector=None, monitor=None, transport="inproc",
                  stall_timeout_s=300.0, lease_timeout_s=None,
-                 speculate=None, data_plane=None, device=None):
+                 speculate=None, data_plane=None, telemetry=None,
+                 device=None):
         super().__init__(graph, pad_multiple, device=device)
         self.shards = max(1, int(shards))
         self.lease_items = max(1, int(lease_items))
@@ -538,6 +605,7 @@ class ShardedPlan(TwoPhasePlan):
         # burns the one host)
         self.speculate = speculate
         self.data_plane = data_plane
+        self.telemetry = telemetry
         self.fleet = None               # FleetControl while _run_proc lives
         kind = self._transport_kind()   # validate early, not mid-stream
         if data_plane is not None and kind == "inproc":
@@ -572,17 +640,6 @@ class ShardedPlan(TwoPhasePlan):
             raise ValueError(f"transport object {t!r} names no known kind")
         return kind
 
-    def _worker_env(self, shard):
-        """Environment additions of shard `shard`'s worker process: with
-        more than one card visible to this process, the one card it is
-        pinned to."""
-        if self.device.type != "cuda" or torch.cuda.device_count() < 2:
-            return {}
-        visible = os.environ.get("CUDA_VISIBLE_DEVICES")
-        ids = (visible.split(",") if visible else
-               [str(i) for i in range(torch.cuda.device_count())])
-        return {"CUDA_VISIBLE_DEVICES": ids[shard % len(ids)]}
-
     # -- single batch: row-split across shards, rebalance, reassemble -------
     def __call__(self, audio) -> BatchResult:
         x = self._to_device(audio)
@@ -592,9 +649,11 @@ class ShardedPlan(TwoPhasePlan):
         cleaned, asg = self._rebalanced_tail(
             [(d.wave5, k) for d, k in zip(dets, keeps)], keeps, len(dets))
         self.last_assignment = asg
-        return BatchResult(cleaned=cleaned, det=_merge_outputs(dets),
-                           n_kept=int(sum(k.sum() for k in keeps)),
-                           src_bytes=x.numel() * x.element_size())
+        res = BatchResult(cleaned=cleaned, det=_merge_outputs(dets),
+                          n_kept=int(sum(k.sum() for k in keeps)),
+                          src_bytes=x.numel() * x.element_size())
+        _record_batch(self.name, res)
+        return res
 
     def _rebalanced_tail(self, item_waves_keeps, shard_keeps, n_live):
         """The rebalanced tail. item_waves_keeps: [(wave5 on the device,
@@ -604,6 +663,11 @@ class ShardedPlan(TwoPhasePlan):
         each slot runs `graph.tail`; the cleaned rows come to the host in
         one copy. Returns (cleaned rows in packed survivor order,
         ShardAssignment)."""
+        with obs_tracing.span("tail_rebalanced", live=n_live):
+            return self._rebalanced_tail_inner(item_waves_keeps, shard_keeps,
+                                               n_live)
+
+    def _rebalanced_tail_inner(self, item_waves_keeps, shard_keeps, n_live):
         asg = self.rebalancer.assign(shard_keeps, out_shards=n_live)
         surv = []
         for wave, keep in item_waves_keeps:
@@ -697,6 +761,7 @@ class ShardedPlan(TwoPhasePlan):
     # -- in-process master: the simulated round loop ------------------------
     def _run_sim(self, pool, queue):
         service = QueueService(queue, monitor=self.monitor,
+                               telemetry=self.telemetry,
                                straggler=self._make_straggler("inproc"))
         # every queue mutation flows through the service (delegation
         # under the queue's lock), so the per-worker ledger accrues as in
@@ -770,14 +835,18 @@ class ShardedPlan(TwoPhasePlan):
             if not service.complete([wid]):
                 continue             # redelivery raced a straggler
             cleaned = cleaned_all[offs[i]:offs[i + 1]]
-            service.note_done(f"shard{shard}", wid=wid)
+            service.note_done(f"shard{shard}", wid=wid,
+                              survivors=int(offs[i + 1] - offs[i]),
+                              bytes_out=cleaned.nbytes)
             if self._release is not None:
                 self._release(wid, None)     # drop the buffered stream item
             orig_wid, labels = (extra.wid, extra.labels) \
                 if isinstance(extra, _StreamMeta) else (wid, extra)
-            yield BatchResult(cleaned=cleaned, det=det,
+            res = BatchResult(cleaned=cleaned, det=det,
                               n_kept=int(offs[i + 1] - offs[i]),
                               wid=orig_wid, labels=labels, src_bytes=nbytes)
+            _record_batch(self.name, res)
+            yield res
 
     def _alive(self, shard):
         return self.injector is None or self.injector.alive(shard)
@@ -836,6 +905,7 @@ class ShardedPlan(TwoPhasePlan):
         service = QueueService(queue, fetch_item=fetch,
                                setup=self._proc_setup(),
                                monitor=self.monitor,
+                               telemetry=self.telemetry,
                                straggler=self._make_straggler("proc"),
                                data_plane=dp)
         if not isinstance(self.transport, str):
@@ -905,7 +975,10 @@ class ShardedPlan(TwoPhasePlan):
                 if not queue.complete([wid], worker=worker):
                     continue        # redelivery raced a straggler
                 det, f = unpack_result(payload)
-                service.note_done(worker, wid=wid)
+                # acceptance: counted, and the durable telemetry point
+                service.note_done(worker, wid=wid, survivors=f["n_kept"],
+                                  bytes_out=f["cleaned"].nbytes)
+                obs_tracing.instant("accept", wid=wid, worker=worker)
                 buffered[wid] = (det, f)
             progressed = bool(drained)
             while emit_i < len(order) and order[emit_i] in buffered:
@@ -917,9 +990,15 @@ class ShardedPlan(TwoPhasePlan):
                 extra = extras.pop(wid, None)
                 orig_wid, labels = (extra.wid, extra.labels) \
                     if isinstance(extra, _StreamMeta) else (wid, extra)
-                yield BatchResult(cleaned=f["cleaned"], det=det,
+                # the gap between a chunk's "accept" and this instant is
+                # time spent buffered behind a straggler
+                obs_tracing.instant("emit_gated", wid=wid,
+                                    buffered=len(buffered))
+                res = BatchResult(cleaned=f["cleaned"], det=det,
                                   n_kept=f["n_kept"], wid=orig_wid,
                                   labels=labels, src_bytes=f["src_bytes"])
+                _record_batch(self.name, res)
+                yield res
             if emit_i >= len(order) or progressed:
                 continue
             # no progress this tick: look for dead workers to reclaim
@@ -1045,8 +1124,12 @@ class CachedPlan(ExecutionPlan):
 
     def _result(self, arrays, meta, wid, extra) -> BatchResult:
         det, f = unpack_result({**arrays, **meta})
-        return BatchResult(cleaned=f["cleaned"], det=det, n_kept=f["n_kept"],
-                           wid=wid, labels=extra, src_bytes=f["src_bytes"])
+        res = BatchResult(cleaned=f["cleaned"], det=det, n_kept=f["n_kept"],
+                          wid=wid, labels=extra, src_bytes=f["src_bytes"])
+        # a hit bypasses the inner plan, so it is counted here; misses are
+        # counted where the inner plan emits them
+        _record_batch(self.name, res)
+        return res
 
     def __call__(self, audio) -> BatchResult:
         if self.store is None:

@@ -6,9 +6,9 @@ Workers lease work ids with deadlines; completion retires them exactly
 once; an expired lease, or a failed worker's, returns its ids to the queue;
 `speculate` grants one duplicate lease on an in-flight id, first completion
 wins. `state` / `from_state` give the snapshot that `store.RunJournal`
-records, so a killed run resumes without loss or repetition. The
-reference's `StandingWorkQueue` (the serving pool's open-ended queue) comes
-with the serving slice.
+records, so a killed run resumes without loss or repetition.
+`StandingWorkQueue` is the serving pool's open-ended queue: work arrives
+with `add()` and the queue is `finished` only after `close()` drains it.
 """
 from __future__ import annotations
 
@@ -276,3 +276,67 @@ class WorkQueue:
     def progress(self):
         with self.lock:
             return len(self._done), self.n_items
+
+
+class StandingWorkQueue(WorkQueue):
+    """Open-ended WorkQueue for a persistent serving pool.
+
+    A batch run knows its item count up front; a serving pool does not —
+    work arrives continuously (`add()`), and the pool's long-lived workers
+    must keep polling through idle gaps instead of exiting the moment the
+    queue momentarily drains. So `finished` only turns True after
+    `close()` once every admitted item is done: the worker runtime's
+    "lease came back empty AND finished" exit condition becomes the
+    pool's graceful-drain signal, with zero worker-side changes.
+
+    Items lease oldest-first (FIFO admission order); redelivered items
+    (lease expiry, `fail_worker`) keep the base class's
+    go-to-the-front-of-the-line priority, so a crashed worker's request
+    is re-served before newer traffic."""
+
+    def __init__(self, lease_timeout_s=60.0, clock=time.monotonic):
+        super().__init__(0, lease_timeout_s, clock)
+        self.closed = False
+
+    def add(self) -> int:
+        """Admit one new work item; returns its work id."""
+        with self.lock:
+            if self.closed:
+                raise RuntimeError(
+                    "standing queue is closed to new work (draining)")
+            wid = self.n_items
+            self.n_items += 1
+            # pending is a stack popped from the END; oldest ids must sit
+            # there, so new admissions go to the FRONT
+            self._pending.insert(0, wid)
+            return wid
+
+    def close(self):
+        """Stop admission; already-admitted work still drains."""
+        with self.lock:
+            self.closed = True
+
+    def abort(self):
+        """Hard stop: close AND discard all unfinished work, so workers
+        polling for `finished` exit without draining. The pool's
+        non-graceful shutdown path (in-proc worker threads have no pid to
+        TERM — this is how they are told to stop)."""
+        with self.lock:
+            self.closed = True
+            self._done = set(range(self.n_items))
+            self._leases.clear()
+            self._spec.clear()
+            self._pending.clear()
+
+    def depth(self):
+        """(queued, leased): admitted items waiting for a worker vs
+        currently in flight — the pool-level backlog gauges."""
+        with self.lock:
+            self._reap_expired()
+            leased = len(self._leases)
+            return self.n_items - len(self._done) - leased, leased
+
+    @property
+    def finished(self):
+        with self.lock:
+            return self.closed and len(self._done) == self.n_items

@@ -6,6 +6,9 @@ CPU would report CPU numbers under the card's name.
 """
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
 
@@ -24,3 +27,22 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
     return dev
+
+
+def to_host(x) -> np.ndarray:
+    """A tensor on any device, or an array, as a numpy array (a tensor on
+    the card is copied back; numpy's `asarray` would raise on it)."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def worker_env(device: torch.device, shard: int) -> dict:
+    """Environment additions for worker process `shard` of a master on
+    `device`: with more than one card visible, the one card it is pinned
+    to (card shard mod count); with one card or on the CPU, nothing (every
+    worker shares the card, each its own CUDA context)."""
+    if device.type != "cuda" or torch.cuda.device_count() < 2:
+        return {}
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    ids = (visible.split(",") if visible else
+           [str(i) for i in range(torch.cuda.device_count())])
+    return {"CUDA_VISIBLE_DEVICES": ids[shard % len(ids)]}

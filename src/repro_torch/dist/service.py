@@ -17,12 +17,16 @@ per-worker accounting accrues as under the process transports. Compound
 operations take the queue's own RLock, so the transport's handler threads
 and the master loop interleave safely.
 
-The reference also mirrors its counters into a metrics registry, writes
-per-chunk telemetry records and propagates a tracer through `hello` /
-`bye`; those come with the port's observability slice. Here the service
-keeps plain integer counters (`counters`, read remotely through
-`metrics`), and `bye` keeps the worker's stats dict as received
-(`WorkerStats.report`: its idle/busy split and its kernel launches).
+Observability, as in the reference: every counter also goes into the
+process's metrics registry under the reference's names (`dist_*_total`,
+the `dist_workers{state}` and `dist_membership_epoch` gauges), which the
+`metrics` RPC returns as a snapshot or Prometheus text; with a
+`TelemetryWriter` the service writes one durable record per accepted chunk
+and per reclaimed lease, on the master; `hello` hands the master's tracer
+context to the worker (`setup["trace"]`) and `bye` merges the spans the
+worker ships back into the master's tracer. `bye` keeps the rest of the
+worker's stats dict as received (`WorkerStats.report`: its idle/busy
+split, its kernel launches and the bytes its allocator held).
 
 Everything that crosses the wire is numpy and plain Python: `fetch`
 returns a host f32 batch and `pack_result` a numpy-only payload, so no
@@ -31,6 +35,7 @@ tensor, on the card or off it, is ever pickled onto the socket.
 from __future__ import annotations
 
 import collections
+import hashlib
 import time
 from dataclasses import dataclass, field
 
@@ -38,11 +43,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import PipelineOutput
+from repro_torch.device import to_host
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
 
 # The complete remote surface. A transport refuses anything else: the
 # service carries master-side state (the result inbox, the grant hook)
 # that workers have no business reaching. `metrics` is read-only, a
-# snapshot of the counters. `drain` / `draining` are the graceful-leave
+# snapshot of the master's metrics registry. `drain` / `draining` are the graceful-leave
 # pair: a departing worker (or the master) calls `drain`, the worker polls
 # `draining` and exits once its held leases are finished. `lease_chunks`
 # is the store data plane's lease: grants come back as (wid, content key)
@@ -53,15 +61,8 @@ RPC_METHODS = frozenset({
     "finished", "next_deadline", "bye", "metrics", "drain", "draining",
 })
 
-# The service's counters, all present in a `metrics` snapshot from the
-# start (redeliveries also count per reason, as redeliveries_<reason>).
-COUNTERS = ("lease_calls", "leased_ids", "pushes", "chunks_done",
-            "redeliveries", "speculations", "workers_joined", "workers_left",
-            "workers_drained", "fetch_bytes_socket", "fetch_bytes_store",
-            "push_bytes_socket", "push_bytes_store")
-
 # Worker membership states (WorkerStats.state). Every transition bumps the
-# service's membership epoch.
+# service's membership epoch and is mirrored into the metrics registry.
 WORKER_STATES = ("active", "draining", "departed", "dead")
 
 
@@ -103,6 +104,9 @@ class QueueService:
                   needs to build its plan (config, stage names,
                   pad_multiple, bucket, device type)
       monitor     optional ft.failure.HeartbeatMonitor fed on heartbeats
+      telemetry   optional obs.telemetry.TelemetryWriter: per-chunk
+                  records written on the master at acceptance and at
+                  redelivery, so that they survive SIGKILLed workers
       straggler   optional ft.failure.StragglerDetector, which arms
                   speculative re-lease: when an active worker's lease
                   comes back empty with work still in flight (the
@@ -117,18 +121,22 @@ class QueueService:
     leave and death. A `hello` mid-run gets the same setup blob the
     original fleet got and leases from the same queue.
 
-    `counters` (plain integers, `COUNTERS`): queue round-trips, ids
-    granted, pushes, accepted results, redeliveries, speculations,
-    membership changes, and the data-plane bytes the master's socket
-    carried per plane (`fetch_bytes_socket`, `push_bytes_store`, ...).
+    Counts (queue round-trips, ids granted, pushes, accepted results,
+    redeliveries, speculations, membership changes, and the data-plane
+    bytes the master's socket carried per plane) go into the process's
+    metrics registry under the reference's names and labels
+    (`dist_lease_calls_total{worker}`, `dist_fetch_bytes_total{plane}`,
+    ...); `lease_calls` is also kept as a plain total, as the reference
+    keeps it.
     """
 
     def __init__(self, queue, fetch_item=None, setup=None, monitor=None,
-                 straggler=None, data_plane=None):
+                 telemetry=None, straggler=None, data_plane=None):
         self.queue = queue
         self._fetch_item = fetch_item
         self._setup = dict(setup or {})
         self.monitor = monitor
+        self.telemetry = telemetry
         self.straggler = straggler
         self.data_plane = data_plane
         self.workers: dict[str, WorkerStats] = {}
@@ -140,9 +148,12 @@ class QueueService:
         # wid -> offered store key (lease_chunks): a redelivered or
         # speculated lease re-offers without hashing the batch again
         self._offered: dict[int, str] = {}
-        self.counters = collections.Counter(dict.fromkeys(COUNTERS, 0))
+        self.lease_calls = 0
         self.epoch = 0
         self._results = collections.deque()
+        # per-chunk event times (lease / fetch / push, content key) by wid,
+        # popped into a telemetry record at acceptance
+        self._timeline: dict[int, dict] = {}
         # the queue fires these under its own lock for every reclaim path
         # (expiry, fail_worker, a lost speculation race) and every
         # retirement, whichever loop caused them
@@ -161,16 +172,27 @@ class QueueService:
             st = self.workers[worker] = WorkerStats(worker)
         return st
 
-    @property
-    def lease_calls(self) -> int:
-        return self.counters["lease_calls"]
-
     def _set_state(self, st: WorkerStats, state: str):
         """Move one worker to another membership state; bumps the epoch
-        only on a real change."""
+        and republishes the membership gauges only on a real change."""
         if st.state != state:
             st.state = state
             self.epoch += 1
+            self._publish_membership()
+
+    def _publish_membership(self):
+        reg = obs_metrics.get_registry()
+        if not reg.enabled:
+            return
+        by_state = collections.Counter(st.state for st in
+                                       self.workers.values())
+        g = reg.gauge("dist_workers", "registered workers by membership "
+                      "state", ("state",))
+        for s in WORKER_STATES:
+            g.labels(state=s).set(by_state.get(s, 0))
+        reg.gauge("dist_membership_epoch",
+                  "membership version: bumps on every join/drain/"
+                  "departure/death").set(self.epoch)
 
     def active_workers(self):
         """Names of workers currently in state 'active'."""
@@ -190,17 +212,56 @@ class QueueService:
     def note_done(self, worker, n=1, wid=None, survivors=None,
                   bytes_out=None):
         """Credit accepted work to `worker`: the master calls this once
-        `WorkQueue.complete` returned the id as newly done. (`wid`,
-        `survivors` and `bytes_out` are the reference's telemetry fields;
-        the port records no telemetry yet.)"""
+        `WorkQueue.complete` returned the id as newly done. That is the
+        acceptance point, so a caller that names the chunk (`wid`, its
+        survivor count and output bytes) gets its durable telemetry record
+        written here, exactly once per chunk."""
         with self.queue.lock:
-            self._w(worker).chunks_done += n
-            self.counters["chunks_done"] += n
+            st = self._w(worker)
+            st.chunks_done += n
+            obs_metrics.counter(
+                "dist_chunks_done_total",
+                "results accepted by the master", ("worker",)
+            ).labels(worker=worker).inc(n)
+            if self.telemetry is not None and wid is not None:
+                tl = self._timeline.pop(wid, {})
+                self.telemetry.record(
+                    event="chunk", status="done", wid=int(wid),
+                    worker=worker, shard=st.shard, pid=st.pid,
+                    content_key=tl.get("content_key"),
+                    lease_ts=tl.get("lease_ts"), fetch_ts=tl.get("fetch_ts"),
+                    push_ts=tl.get("push_ts"), accept_ts=time.time(),
+                    survivors=None if survivors is None else int(survivors),
+                    bytes_in=tl.get("bytes_in"),
+                    bytes_out=None if bytes_out is None else int(bytes_out),
+                    redelivered=int(tl.get("redelivered", 0)),
+                    speculated=int(tl.get("speculated", 0)))
 
     def _on_redeliver(self, wid, worker, reason):
-        """Queue-level reclaim hook (under the queue lock)."""
-        self.counters["redeliveries"] += 1
-        self.counters[f"redeliveries_{reason}"] += 1
+        """Queue-level reclaim hook (under the queue lock): count it and
+        attribute the losing incarnation in telemetry. For "speculated"
+        the id is already done: the record names the loser and the
+        timeline is left to the winner's `done` record."""
+        obs_metrics.counter(
+            "dist_redeliveries_total", "leases reclaimed",
+            ("worker", "reason")).labels(worker=worker, reason=reason).inc()
+        if self.telemetry is None:
+            return
+        st = self.workers.get(worker)
+        tl = self._timeline.get(wid, {})
+        self.telemetry.record(
+            event="chunk", status="redelivered", reason=reason,
+            wid=int(wid), worker=worker,
+            shard=st.shard if st else -1, pid=st.pid if st else None,
+            content_key=tl.get("content_key"),
+            lease_ts=tl.get("lease_ts"), fetch_ts=tl.get("fetch_ts"))
+        if reason == "speculated":
+            return
+        # the next lease starts a fresh timeline that keeps the counts, so
+        # that the eventual "done" record carries them
+        self._timeline[wid] = {
+            "redelivered": tl.get("redelivered", 0) + 1,
+            "speculated": tl.get("speculated", 0)}
 
     def _on_complete(self, wids):
         """Queue-level retirement hook (under the queue lock): closes the
@@ -231,8 +292,9 @@ class QueueService:
         With `worker=None` the caller announces rather than asserts its
         identity: the registry assigns it the shard reserved for its pid
         at spawn, or the next free id, and ships the assignment back under
-        "assigned". With a store data plane its spec rides under
-        "data_plane"."""
+        "assigned". With a live tracer on the master its propagation
+        context rides under "trace"; with a store data plane its spec
+        under "data_plane"."""
         assigned = None
         with self.queue.lock:
             if worker is None:
@@ -253,12 +315,19 @@ class QueueService:
             st.last_beat = self.queue.clock()
             st.joined_at = time.monotonic()
             if not known or st.state != "active":
-                self.counters["workers_joined"] += 1
+                obs_metrics.counter(
+                    "dist_workers_joined_total",
+                    "workers that signed in (first hello or rejoin)",
+                    ("worker",)).labels(worker=worker).inc()
                 st.state = "active"
                 self.epoch += 1
-        if assigned is None and self.data_plane is None:
+                self._publish_membership()
+        prop = obs_tracing.get_tracer().propagate()
+        if prop is None and assigned is None and self.data_plane is None:
             return self._setup
         setup = dict(self._setup)
+        if prop is not None:
+            setup["trace"] = prop
         if assigned is not None:
             setup["assigned"] = assigned
         if self.data_plane is not None:
@@ -270,7 +339,10 @@ class QueueService:
             st = self._w(worker)
             st.lease_calls += 1
             st.last_beat = self.queue.clock()
-            self.counters["lease_calls"] += 1
+            self.lease_calls += 1
+            obs_metrics.counter(
+                "dist_lease_calls_total", "queue round-trips",
+                ("worker",)).labels(worker=worker).inc()
             if st.state != "active":
                 # a draining or departed worker takes no more work: an
                 # empty lease and the `draining` poll are its exit signal
@@ -284,7 +356,16 @@ class QueueService:
                 for wid in ids:
                     self.straggler.start(wid)
             st.leased_total += len(ids)
-            self.counters["leased_ids"] += len(ids)
+            if ids:
+                obs_metrics.counter(
+                    "dist_leased_ids_total", "work ids granted",
+                    ("worker",)).labels(worker=worker).inc(len(ids))
+            if self.telemetry is not None and ids:
+                now = time.time()
+                for wid in ids:
+                    tl = self._timeline.setdefault(wid, {})
+                    tl["lease_ts"] = now
+                    tl["worker"] = worker
         if self.monitor is not None:
             self.monitor.beat(worker)
         hook = self.on_grant
@@ -301,7 +382,14 @@ class QueueService:
             return []
         for wid in self.straggler.stragglers():
             if self.queue.speculate(worker, wid):
-                self.counters["speculations"] += 1
+                obs_metrics.counter(
+                    "dist_speculations_total",
+                    "speculative duplicate leases granted",
+                    ("worker",)).labels(worker=worker).inc()
+                # the eventual `done` record carries the count, whichever
+                # incarnation wins
+                tl = self._timeline.setdefault(wid, {})
+                tl["speculated"] = tl.get("speculated", 0) + 1
                 return [wid]
         return []
 
@@ -325,7 +413,7 @@ class QueueService:
             key = cached.get(wid)
             if key is None:          # first offer: hash and publish once
                 key = fresh[wid] = self.data_plane.offer(wid, item)
-            self._note_fetch(item, plane="store", key=key)
+            self._note_fetch(wid, item, plane="store", key=key)
             out.append([wid, key])
         if fresh:
             with self.queue.lock:
@@ -339,28 +427,39 @@ class QueueService:
                                "(no fetch_item)")
         return self._fetch_item(wid)
 
-    def _note_fetch(self, item, plane, key=None):
+    def _note_fetch(self, wid, item, plane, key=None):
         """Data-plane accounting: the socket plane is charged the batch's
         bytes, the store plane only the key that replaced them."""
-        wire = len(key) if plane == "store" else int(np.asarray(item).nbytes)
+        raw = np.ascontiguousarray(item)
+        wire = len(key) if plane == "store" else int(raw.nbytes)
+        obs_metrics.counter(
+            "dist_fetch_bytes_total",
+            "data-plane bytes the master's socket carried for chunk "
+            "fetches", ("plane",)).labels(plane=plane).inc(wire)
+        if self.telemetry is None:
+            return
         with self.queue.lock:
-            self.counters[f"fetch_bytes_{plane}"] += wire
+            tl = self._timeline.setdefault(wid, {})
+            tl["fetch_ts"] = time.time()
+            tl["bytes_in"] = int(raw.nbytes)
+            tl["content_key"] = key[:21] if key is not None else \
+                hashlib.sha256(memoryview(raw).cast("B")).hexdigest()[:16]
 
     def fetch(self, wid):
         """Socket data plane: the chunk batch of one leased work id,
         materialised master-side and shipped over the control socket."""
         item = self._materialize(wid)
         if item is not None:
-            self._note_fetch(item, plane="socket")
+            self._note_fetch(wid, item, plane="socket")
         return item
 
     def fetch_many(self, worker, wids):
         """Batched socket data plane: one round-trip for a whole lease
         batch, accounted item by item, with one heartbeat."""
         items = [self._materialize(wid) for wid in wids]
-        for item in items:
+        for wid, item in zip(wids, items):
             if item is not None:
-                self._note_fetch(item, plane="socket")
+                self._note_fetch(wid, item, plane="socket")
         self.heartbeat(worker)
         return items
 
@@ -374,7 +473,10 @@ class QueueService:
         with self.queue.lock:
             st = self._w(worker)
             if st.state == "active":
-                self.counters["workers_drained"] += 1
+                obs_metrics.counter(
+                    "dist_workers_drained_total",
+                    "workers asked to leave gracefully",
+                    ("worker",)).labels(worker=worker).inc()
                 self._set_state(st, "draining")
         return True
 
@@ -393,12 +495,20 @@ class QueueService:
         payload is a small `{"store_key": ...}` ref."""
         plane = ("store" if isinstance(payload, dict)
                  and "store_key" in payload else "socket")
+        nbytes = _payload_nbytes(payload)
+        obs_metrics.counter(
+            "dist_push_bytes_total",
+            "data-plane bytes the master's socket carried for result "
+            "pushes", ("plane",)).labels(plane=plane).inc(nbytes)
         with self.queue.lock:
-            self.counters[f"push_bytes_{plane}"] += _payload_nbytes(payload)
-            self.counters["pushes"] += 1
             self.queue.heartbeat_extend(worker)
             self._w(worker).last_beat = self.queue.clock()
             self._results.append((worker, wid, payload))
+            obs_metrics.counter(
+                "dist_pushes_total", "results pushed (pre-acceptance)",
+                ("worker",)).labels(worker=worker).inc()
+            if self.telemetry is not None:
+                self._timeline.setdefault(wid, {})["push_ts"] = time.time()
         if self.monitor is not None:
             self.monitor.beat(worker)
         return True
@@ -436,33 +546,39 @@ class QueueService:
 
     def bye(self, worker, stats=None):
         """Worker sign-off with its stats dict (idle/busy split, chunks,
-        kernel launches), kept as received in `WorkerStats.report`."""
+        kernel launches), kept as received in `WorkerStats.report`, apart
+        from the span events a tracing worker ships under "spans": those
+        are merged into the master's tracer, which is how worker spans
+        cross the pickle boundary."""
+        stats = dict(stats or {})
+        spans = stats.pop("spans", None)
         with self.queue.lock:
             st = self._w(worker)
             if stats:
-                st.report = dict(stats)
+                st.report = stats
                 for k in ("idle_s", "busy_s"):
                     if k in stats:
                         setattr(st, k, float(stats[k]))
             if st.state != "dead":
                 if st.state != "departed":
-                    self.counters["workers_left"] += 1
+                    obs_metrics.counter(
+                        "dist_workers_left_total",
+                        "workers that signed off gracefully",
+                        ("worker",)).labels(worker=worker).inc()
                 self._set_state(st, "departed")
         # a departed worker stops heartbeating by design: drop it from
         # liveness tracking, so that it never reads as dead
         if self.monitor is not None:
             self.monitor.forget(worker)
+        if spans:
+            obs_tracing.get_tracer().add_events(spans)
         return True
 
-    def metrics(self):
-        """Read-only snapshot: the counters, the membership epoch and the
-        workers per membership state."""
-        with self.queue.lock:
-            by_state = collections.Counter(st.state for st in
-                                           self.workers.values())
-            return {"counters": dict(self.counters), "epoch": self.epoch,
-                    "workers": {s: by_state.get(s, 0)
-                                for s in WORKER_STATES}}
+    def metrics(self, render=False):
+        """Read-only scrape of the master's metrics registry: a JSON- and
+        pickle-safe snapshot, or Prometheus text when `render` is set."""
+        reg = obs_metrics.get_registry()
+        return reg.render() if render else reg.snapshot()
 
     # -- master-side (not served) -------------------------------------------
     def pop_results(self):
@@ -549,20 +665,15 @@ def _payload_nbytes(payload) -> int:
     return 8
 
 
-def _host(x) -> np.ndarray:
-    """A tensor on any device, or an array, as a numpy array."""
-    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
-
-
 def pack_result(res) -> dict:
     """BatchResult -> payload: masks + stats + cleaned survivors, all
     numpy. The pre-denoise wave5 intermediate is not kept, only its width,
     so that the reader can rebuild a det record of the right shape."""
     det = res.det
     return {
-        "cleaned": np.asarray(_host(res.cleaned), np.float32),
-        "keep": _host(det.keep), "rain": _host(det.rain),
-        "silence": _host(det.silence), "cicada15": _host(det.cicada15),
+        "cleaned": np.asarray(to_host(res.cleaned), np.float32),
+        "keep": to_host(det.keep), "rain": to_host(det.rain),
+        "silence": to_host(det.silence), "cicada15": to_host(det.cicada15),
         "stats": {k: (int(v) if k == "n_chunks5" else float(v))
                   for k, v in det.stats.items()},
         "n_kept": int(res.n_kept), "src_bytes": int(res.src_bytes),

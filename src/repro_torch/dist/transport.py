@@ -47,6 +47,7 @@ from multiprocessing.connection import Client, Listener
 from pathlib import Path
 
 from repro_torch.dist.service import RPC_METHODS
+from repro_torch.obs import metrics as obs_metrics
 
 AUTHKEY_ENV = "REPRO_DIST_AUTHKEY"
 
@@ -214,12 +215,20 @@ class ProcTransport:
                 if method not in RPC_METHODS:
                     msg = (False, f"method {method!r} is not served")
                 else:
+                    obs_metrics.counter(
+                        "dist_rpc_calls_total",
+                        "proc-transport RPCs served, by method",
+                        ("method",)).labels(method=method).inc()
                     try:
                         attr = getattr(service, method)
                         val = attr(*args, **kwargs) if callable(attr) \
                             else attr
                         msg = (True, val)
                     except Exception as e:          # ship, don't crash
+                        obs_metrics.counter(
+                            "dist_rpc_errors_total",
+                            "RPCs that raised on the master",
+                            ("method",)).labels(method=method).inc()
                         msg = (False, f"{type(e).__name__}: {e}")
                 try:
                     conn.send(msg)
@@ -231,7 +240,7 @@ class ProcTransport:
             except OSError:
                 pass
 
-    def spawn_worker(self, shard=None, lease_items=1,
+    def spawn_worker(self, shard=None, lease_items=1, poll_s=None,
                      env_extra=None) -> WorkerHandle:
         """Launch `python -m repro_torch.dist.worker` against this
         transport's address: a fresh interpreter (fork and exec, never a
@@ -243,7 +252,8 @@ class ProcTransport:
         No shard id rides the argv: the worker adopts its identity from the
         registry at `hello`. `shard` only stamps the returned handle with
         the id the caller reserved master-side (`QueueService.reserve`);
-        None for a pure late joiner."""
+        None for a pure late joiner. `poll_s` is the worker's sleep after
+        an empty lease (None: the worker's default)."""
         if self.address is None:
             raise RuntimeError("serve() first: workers need an address")
         # the directory above the package, from the package's own location
@@ -253,11 +263,12 @@ class ProcTransport:
         env["PYTHONPATH"] = pkg_root + (
             os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
         env.update(env_extra or {})
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.dist.worker",
-             "--master", self.address,
-             "--lease-items", str(int(lease_items))],
-            env=env)
+        argv = [sys.executable, "-m", "repro_torch.dist.worker",
+                "--master", self.address,
+                "--lease-items", str(int(lease_items))]
+        if poll_s is not None:
+            argv += ["--poll-s", repr(float(poll_s))]
+        proc = subprocess.Popen(argv, env=env)
         return WorkerHandle(shard, proc)
 
     # -- worker side --------------------------------------------------------

@@ -34,6 +34,15 @@ done, the kernel launches this worker made (`kernels.launches()`), which
 the master's own counters cannot see, and the bytes its allocator holds on
 the card. `run_worker` is importable, so that
 tests drive the loop in-process over an `InProcTransport`.
+
+Tracing: when the master runs a tracer, `hello` carries its trace id and
+run-span parent. The worker records `lease`, `fetch_many` or
+`fetch_store`, `compute` and `push` as complete events of its own tracer
+(only for iterations that got work) and ships them in `bye`; a SIGKILLed
+worker loses its spans, never the run. In a worker process that tracer is
+also installed as the process's, so that the plan's own spans land in it;
+an in-process worker shares the master's tracer, which already catches
+them.
 """
 from __future__ import annotations
 
@@ -60,6 +69,7 @@ def run_worker(master, shard=None, lease_items=1, poll_s=0.05,
     from repro_torch.core.plans import TwoPhasePlan
     from repro_torch.dist.service import pack_result
     from repro_torch.dist.transport import ProcTransport
+    from repro_torch.obs import tracing as obs_tracing
 
     if transport is None:
         transport = ProcTransport()
@@ -73,6 +83,11 @@ def run_worker(master, shard=None, lease_items=1, poll_s=0.05,
     else:
         worker = f"shard{int(shard)}"
         spec = proxy.call("hello", worker, os.getpid(), int(shard))
+    tracer = obs_tracing.NULL_TRACER
+    if spec.get("trace"):
+        tracer = obs_tracing.Tracer(**spec["trace"])
+        if not obs_tracing.get_tracer().enabled:
+            obs_tracing.set_tracer(tracer)
     graph = PipelineGraph(spec["cfg"], spec.get("stages"),
                           spec.get("source_channels", 2))
     # the blob's device or an error: resolve_device raises on "cuda"
@@ -93,6 +108,7 @@ def run_worker(master, shard=None, lease_items=1, poll_s=0.05,
     done = 0
     while max_items is None or done < max_items:
         t0 = time.perf_counter()
+        w0 = time.time()
         if plane is None:
             ids = proxy.call("lease", worker, lease_items)
             keys = {}
@@ -111,11 +127,15 @@ def run_worker(master, shard=None, lease_items=1, poll_s=0.05,
             idle += time.perf_counter() - t0
             time.sleep(poll_s)
             continue
+        tracer.complete("lease", w0, worker=worker, ids=ids)
+        w1 = time.time()
         if plane is None:
             items = list(zip(ids, proxy.call("fetch_many", worker, ids)))
+            tracer.complete("fetch_many", w1, worker=worker, n=len(ids))
         else:
             items = [(wid, None if keys[wid] is None
                       else plane.fetch_chunks(keys[wid])) for wid in ids]
+            tracer.complete("fetch_store", w1, worker=worker, n=len(ids))
         idle += time.perf_counter() - t0
         for wid, chunks in items:
             if chunks is None:
@@ -123,17 +143,23 @@ def run_worker(master, shard=None, lease_items=1, poll_s=0.05,
                 # before the fetch, the master already has its result
                 continue
             t1 = time.perf_counter()
+            w2 = time.time()
             # a heartbeat per item bounds the lease-expiry exposure to one
             # item's compute time, not the whole lease batch's
             proxy.call("heartbeat", worker)
-            payload = pack_result(plan(np.asarray(chunks, np.float32)))
+            res = plan(np.asarray(chunks, np.float32))
+            payload = pack_result(res)
             busy += time.perf_counter() - t1
+            tracer.complete("compute", w2, worker=worker, wid=wid,
+                            n_kept=int(res.n_kept))
             t2 = time.perf_counter()
+            w3 = time.time()
             if plane is None:
                 proxy.call("push_result", worker, wid, payload)
             else:
                 proxy.call("push_result", worker, wid,
                            plane.push(keys[wid], payload))
+            tracer.complete("push", w3, worker=worker, wid=wid)
             idle += time.perf_counter() - t2
             done += 1
     now = kernels.launches()
@@ -144,6 +170,8 @@ def run_worker(master, shard=None, lease_items=1, poll_s=0.05,
              # its exit, with its context
              "cuda_reserved_bytes": torch.cuda.memory_reserved(plan.device)
              if plan.device.type == "cuda" else 0}
+    if tracer.enabled:
+        stats["spans"] = tracer.drain()
     try:
         proxy.call("bye", worker, stats)
     finally:
@@ -160,8 +188,11 @@ def main(argv=None):
     ap.add_argument("--lease-items", type=int, default=1,
                     help="work ids per queue round-trip (the paper's "
                          "max_queue_size knob)")
+    ap.add_argument("--poll-s", type=float, default=0.05,
+                    help="sleep between empty lease polls")
     args = ap.parse_args(argv)
-    run_worker(args.master, lease_items=args.lease_items)
+    run_worker(args.master, lease_items=args.lease_items,
+               poll_s=args.poll_s)
     return 0
 
 

@@ -115,7 +115,9 @@ class CudaKernel:
     The entry point takes the given argument types followed by the CUDA
     stream and returns a `cudaError_t` code; the launch is enqueued on the
     current stream of `device`. `launches` counts the launches that were
-    accepted and nothing else."""
+    accepted and nothing else, under a lock: threads of one process (an
+    in-process worker pool) launch the same kernel, and `+= 1` on an
+    attribute is not atomic."""
 
     def __init__(self, source: str, symbol: str, argtypes):
         self.source = source
@@ -123,6 +125,7 @@ class CudaKernel:
         self.argtypes = [*argtypes, ctypes.c_void_p]
         self.launches = 0
         self._fn = None
+        self._count_lock = threading.Lock()
 
     def __call__(self, device: torch.device, *args):
         if self._fn is None:
@@ -135,7 +138,8 @@ class CudaKernel:
         if err != 0:
             msg = load(self.source).repro_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err}: {msg}")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 def require_cuda(*tensors, dtype=torch.float32):

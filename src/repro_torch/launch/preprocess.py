@@ -32,6 +32,14 @@ re-lease of stragglers. It adds the queue's redeliveries, the last
 survivor re-shard and one summary line per worker. The batches are
 synthesised on the host as the loop asks for them (by the master, for
 the sharded plan), and that time is inside the reported wall time.
+
+`--telemetry DIR` writes one durable JSONL record per batch (the sharded
+plan's QueueService writes them on the master at acceptance, so that a
+killed worker cannot lose them; the other plans here, as each result is
+emitted); `--trace FILE` writes a Chrome trace of the run, worker
+processes' spans parented under the master's run span. Either adds one
+`metrics:` line per non-zero series of the metrics registry. `--mode` is
+another name for `--plan`, as in the reference.
 """
 from __future__ import annotations
 
@@ -44,6 +52,9 @@ from repro_torch.configs import SERF_AUDIO
 from repro_torch.core.plans import PLANS, Preprocessor, ShardedPlan, SizedIter
 from repro_torch.core.scheduler import balance_stats
 from repro_torch.data.loader import audio_batch_maker, audio_shard_pool
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import telemetry as obs_telemetry
+from repro_torch.obs import tracing as obs_tracing
 
 _FRAC_KEYS = ("frac_rain", "frac_silence", "frac_kept", "frac_cicada15")
 _STAGES = ("dispatch", "readback", "compact", "tail", "emit")
@@ -54,7 +65,8 @@ def main(argv=None):
     ap.add_argument("--minutes", type=float, default=4.0)
     ap.add_argument("--batch-long-chunks", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--plan", default="two_phase", choices=sorted(PLANS))
+    ap.add_argument("--plan", "--mode", dest="plan", default="two_phase",
+                    choices=sorted(PLANS))
     ap.add_argument("--shards", type=int, default=2,
                     help="shard / worker count for --plan sharded")
     ap.add_argument("--transport", choices=("inproc", "proc", "tcp"),
@@ -93,6 +105,14 @@ def main(argv=None):
     ap.add_argument("--store-max-bytes", type=int, default=None,
                     help="after the run, evict least-recently-hit store "
                          "entries until the payload fits this budget")
+    ap.add_argument("--telemetry", default=None, metavar="DIR",
+                    help="write one durable JSONL telemetry record per "
+                         "batch into DIR (sharded plan: on the master, at "
+                         "acceptance, so that killed workers lose none)")
+    ap.add_argument("--trace", default=None, metavar="FILE",
+                    help="write a Chrome trace-event JSON of the run (load "
+                         "in Perfetto); worker processes ship their spans "
+                         "back at sign-off")
     args = ap.parse_args(argv)
     if args.resume and not args.store:
         ap.error("--resume requires --store")
@@ -140,6 +160,15 @@ def main(argv=None):
         plan, plan_kwargs = "cached", {
             "inner": inner, "store": args.store, "journal": True,
             "resume": args.resume, **plan_kwargs}
+    telem = (obs_telemetry.TelemetryWriter(args.telemetry)
+             if args.telemetry else None)
+    tracer = None
+    if args.trace:
+        tracer = obs_tracing.Tracer()
+        obs_tracing.set_tracer(tracer)
+        tracer.start_run("preprocess_run")
+    if telem is not None and plan == "sharded":
+        plan_kwargs["telemetry"] = telem
     pre = Preprocessor(SERF_AUDIO, plan=plan, device=args.device,
                        **plan_kwargs)
     n_batches = max(1, int(round(args.minutes / args.batch_long_chunks)))
@@ -162,7 +191,7 @@ def main(argv=None):
     last_keep = None
     timings = []
     t0 = time.time()
-    for res in pre.run(stream):
+    for i, res in enumerate(pre.run(stream)):
         w = float(res.det.stats["n_chunks5"])
         for k in _FRAC_KEYS:
             agg[k] += float(res.det.stats[k]) * w
@@ -172,9 +201,24 @@ def main(argv=None):
         last_keep = res.det.keep
         if res.timings is not None:
             timings.append(res.timings)
+        if telem is not None and plan != "sharded":
+            # a single-process plan's acceptance point is this loop
+            obs_telemetry.record_result(
+                telem, res.wid if res.wid is not None else i, res)
     if pre.device.type == "cuda":
         torch.cuda.synchronize(pre.device)
     dt = time.time() - t0
+    if tracer is not None:
+        tracer.finish_run()
+        tracer.save(args.trace)
+        print(f"trace: {len(tracer.events)} events -> {args.trace}")
+    if telem is not None:
+        telem.close()
+        print(f"telemetry: {telem.records_written} records -> "
+              f"{args.telemetry}")
+    if args.trace or args.telemetry:
+        for line in obs_metrics.summary_lines():
+            print("metrics:", line)
     cached = pre.plan if plan == "cached" else None
     if tot_chunks == 0:
         print("nothing left to emit: the journal shows every chunk of this "

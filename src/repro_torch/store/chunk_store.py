@@ -36,6 +36,8 @@ import zlib
 
 import numpy as np
 
+from repro_torch.obs import metrics as obs_metrics
+
 
 def content_key(chunks, graph_fingerprint, framework_tag) -> str:
     """Content hash of one raw chunk batch under one computation identity.
@@ -67,14 +69,26 @@ _STORE_FIELDS = (
 
 
 class StoreStats:
-    """Hit/miss/volume accounting for one ChunkStore handle: plain integer
-    attributes. (The reference also mirrors each increment into its
-    metrics registry; the port's observability slice will add that.)"""
+    """Hit/miss/volume accounting for one ChunkStore handle.
+
+    The plain integer attributes are the source of truth, and every
+    increment also mirrors its delta into the process's metrics registry
+    as `store_<field>_total{store=<label>}`, as in the reference."""
 
     def __init__(self, label="chunks"):
-        self.label = str(label)
+        object.__setattr__(self, "label", str(label))
         for name in _STORE_FIELDS:
-            setattr(self, name, 0)
+            object.__setattr__(self, name, 0)
+
+    def __setattr__(self, name, value):
+        if name in _STORE_FIELDS:
+            delta = value - getattr(self, name, 0)
+            if delta > 0:
+                obs_metrics.counter(
+                    "store_" + name + "_total",
+                    "ChunkStore ledger (mirrored from StoreStats)",
+                    ("store",)).labels(store=self.label).inc(delta)
+        object.__setattr__(self, name, value)
 
     @property
     def hit_rate(self) -> float:

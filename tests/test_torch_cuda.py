@@ -429,3 +429,92 @@ def test_sharded_cuda_workers_bitwise_equal_two_phase(card):
     total = {n: sum(r["launches"][n] for r in reports)
              for n in kernels.KERNELS}
     assert all(total[n] > 0 for n in ("fir_hpf", "stft_dft", "fused_tail"))
+
+
+# ------------------------------------------------------ the serving tier
+
+def _requests(n):
+    make = audio_batch_maker(seed=23, batch_long_chunks=1)
+    return [make(w)[0][0] for w in range(n)]
+
+
+def test_inproc_pool_on_card_bitwise_equal_two_phase(card):
+    """Two worker threads on the card (one CUDA context, the default
+    stream each) serve batches of 1, 2 and 4 long chunks bitwise equal to
+    two_phase on the card, and every launch is counted."""
+    from repro_torch.serve import WorkerPool
+    reqs = _requests(4)
+    batches = [np.stack(reqs[:n]) for n in (1, 2, 4, 4, 2)]
+    two_phase = Preprocessor(cfg, plan="two_phase")
+    want = [two_phase(b) for b in batches]
+    kernels.reset_launches()
+    with WorkerPool(cfg, workers=2, transport="inproc", poll_s=0.002) as pool:
+        assert pool.device.type == "cuda"
+        wids = [pool.submit(b) for b in batches]
+        got = pool.wait(wids, timeout_s=300.0)
+    assert kernels.launches()["fused_tail"] == sum(
+        1 for w in want if w.n_kept)          # one tail per batch, no loss
+    assert kernels.launches()["fir_hpf"] > 0
+    _assert_same([dataclasses.replace(got[w], wid=None) for w in wids],
+                 want)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 0])
+def test_serving_batches_on_card_match_cpu(card, rows):
+    """The serving shapes: batches of 1 and 2 long chunks, and a batch
+    whose every chunk is removed (rows=0: one near-silent chunk), through
+    the batcher over two_phase on the card against the same on the CPU."""
+    from repro_torch.serve import ContinuousBatcher
+    reqs = _requests(2)[:rows] if rows else [
+        (1e-4 * np.random.RandomState(0).randn(*_requests(1)[0].shape))
+        .astype(np.float32)]
+
+    def serve(device):
+        b = ContinuousBatcher(plan=Preprocessor(cfg, device=device),
+                              max_batch=4, linger_s=0.0)
+        rids = [b.submit(c) for c in reqs]
+        b.flush()
+        return [b.result(r) for r in rids]
+
+    got, want = serve(None), serve("cpu")
+    for g, w in zip(got, want):
+        assert g["ok"] and w["ok"]
+        for m in ("keep", "rain", "silence"):
+            np.testing.assert_array_equal(g[m], w[m])
+        assert g["cleaned"].shape == w["cleaned"].shape
+        np.testing.assert_allclose(g["cleaned"], w["cleaned"], rtol=2e-4,
+                                   atol=2e-4)
+    if not rows:
+        assert not got[0]["keep"].any() and got[0]["cleaned"].shape[0] == 0
+
+
+def test_obs_hooks_on_card_results(card, tmp_path):
+    """`_record_batch` and `record_result` on results whose masks lie on
+    the card: no exception, the counts right, the output unchanged."""
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import telemetry as obs_telemetry
+    from repro_torch.obs import tracing as obs_tracing
+    stream = _stream(2)
+    prev = obs_metrics.get_registry()
+    obs_metrics.set_registry(obs_metrics.NullRegistry())
+    try:
+        want = list(Preprocessor(cfg, plan="async").run(stream))
+        reg = obs_metrics.MetricsRegistry()
+        obs_metrics.set_registry(reg)
+        tracer = obs_tracing.Tracer()
+        obs_tracing.set_tracer(tracer)
+        got = list(Preprocessor(cfg, plan="async").run(stream))
+        assert got[0].det.keep.device.type == "cuda"
+        with obs_telemetry.TelemetryWriter(tmp_path) as w:
+            for r in got:
+                obs_telemetry.record_result(w, r.wid, r)
+    finally:
+        obs_metrics.set_registry(prev)
+        obs_tracing.set_tracer(None)
+    _assert_same(got, want)
+    obs_tracing.validate_chrome_trace(tracer.chrome())
+    snap = reg.snapshot()
+    (chunks,) = snap["plan_chunks_total"]["series"]
+    assert chunks["value"] == sum(r.det.keep.numel() for r in got)
+    recs = obs_telemetry.read_records(str(tmp_path))
+    assert [r["survivors"] for r in recs] == [r.n_kept for r in got]

@@ -1,5 +1,5 @@
 """The port's master/worker runtime on the CPU: the QueueService's RPC
-surface, registry, membership, speculation, counters and store data plane;
+surface, registry, membership, speculation, metrics and store data plane;
 the worker runtime driven in-process over `InProcTransport`; real worker
 processes over the proc and tcp transports (spawned with one intra-op
 thread each, every run bounded by the plan's `stall_timeout_s`), bitwise
@@ -28,12 +28,31 @@ from repro_torch.dist.data_plane import result_key
 from repro_torch.dist.service import RPC_METHODS, WORKER_STATES
 from repro_torch.dist.worker import run_worker
 from repro_torch.ft.failure import CrashInjector, StragglerDetector
+from repro_torch.obs import metrics as obs_metrics
 
 # every proc run of this file: a stall bound that fails a test instead of
 # hanging the run
 PROC_KW = {"stall_timeout_s": 120.0, "device": "cpu"}
 SETUP = {"cfg": cfg, "stages": None, "source_channels": 2,
          "pad_multiple": 1, "bucket": "linear", "device": "cpu"}
+
+
+@pytest.fixture
+def fresh_registry():
+    """An isolated metrics registry for the test; the process's own is
+    restored afterwards."""
+    prev = obs_metrics.get_registry()
+    reg = obs_metrics.MetricsRegistry()
+    obs_metrics.set_registry(reg)
+    yield reg
+    obs_metrics.set_registry(prev)
+
+
+def total(reg, name, **labels):
+    """The sum of a registry counter's series whose labels match."""
+    m = reg.snapshot().get(name, {"series": []})
+    return sum(s["value"] for s in m["series"]
+               if all(s["labels"][k] == v for k, v in labels.items()))
 
 
 @pytest.fixture(autouse=True)
@@ -107,7 +126,7 @@ def test_workqueue_thread_hammer_no_lost_or_dup():
 
 # --------------------------------------------------- service + registry
 
-def test_queue_service_ledger_grant_hook_and_counters():
+def test_queue_service_ledger_grant_hook_and_counters(fresh_registry):
     q = WorkQueue(4, lease_timeout_s=60.0)
     svc = QueueService(q)
     granted = []
@@ -128,15 +147,18 @@ def test_queue_service_ledger_grant_hook_and_counters():
     svc.note_done("shard0")
     assert svc.worker_report()[0].chunks_done == 1
     assert st.leases_held == 2 and st.last_beat_age_s is not None
+    reg = fresh_registry            # under the reference's names
+    assert total(reg, "dist_lease_calls_total") == svc.lease_calls == 1
+    assert total(reg, "dist_leased_ids_total", worker="shard0") == 3
+    assert total(reg, "dist_pushes_total") == 1
+    assert total(reg, "dist_push_bytes_total", plane="socket") == 16
+    assert total(reg, "dist_chunks_done_total") == 1
     m = svc.metrics()
-    assert m["counters"]["lease_calls"] == svc.lease_calls == 1
-    assert m["counters"]["leased_ids"] == 3
-    assert m["counters"]["pushes"] == 1
-    assert m["counters"]["push_bytes_socket"] == 16
-    assert m["counters"]["chunks_done"] == 1
-    assert m["workers"] == {"active": 1, "draining": 0, "departed": 0,
-                            "dead": 0}
-    assert set(m["workers"]) == set(WORKER_STATES)
+    workers = {s["labels"]["state"]: s["value"]
+               for s in m["dist_workers"]["series"]}
+    assert workers == {"active": 1, "draining": 0, "departed": 0,
+                       "dead": 0}
+    assert set(workers) == set(WORKER_STATES)
     report = {"idle_s": 1.5, "busy_s": 2.5, "chunks": 1,
               "launches": {"fir_hpf": 3}}
     svc.bye("shard0", report)
@@ -145,13 +167,14 @@ def test_queue_service_ledger_grant_hook_and_counters():
     assert st.state == "departed"
 
 
-def test_inproc_transport_serves_only_the_rpc_surface():
+def test_inproc_transport_serves_only_the_rpc_surface(fresh_registry):
     svc = QueueService(WorkQueue(2))
     proxy = InProcTransport().connect(svc)
     assert proxy.call("lease", "w", 1) == [0]
     assert proxy.call("finished") is False  # a property, dispatched plainly
     assert proxy.call("complete", [0]) == [0]
-    assert proxy.call("metrics")["counters"]["leased_ids"] == 1
+    assert proxy.call("metrics")["dist_leased_ids_total"]["series"][0][
+        "value"] == 1
     for method in ("pop_results", "worker_report", "queue", "on_grant",
                    "reserve", "resolve_result"):
         assert method not in RPC_METHODS
@@ -177,7 +200,7 @@ def test_registry_assigns_reserved_then_sequential():
     assert svc.hello(None, pid=555, shard=-1)["assigned"]["shard"] == 10
 
 
-def test_queue_service_membership_registry():
+def test_queue_service_membership_registry(fresh_registry):
     svc = QueueService(WorkQueue(4, lease_timeout_s=60.0,
                                  clock=SettableClock()))
     svc.hello("shard0", pid=1, shard=0)
@@ -200,9 +223,8 @@ def test_queue_service_membership_registry():
     assert svc.workers["shard0"].state == "dead"
     assert svc.active_workers() == ["shard1"]
     assert svc.epoch > e0 + 1
-    c = svc.metrics()["counters"]
-    assert (c["workers_joined"], c["workers_drained"], c["workers_left"]) \
-        == (3, 1, 1)
+    assert [total(fresh_registry, f"dist_workers_{k}_total")
+            for k in ("joined", "drained", "left")] == [3, 1, 1]
 
 
 def test_work_queue_speculate_refusals_and_grant():
@@ -218,7 +240,8 @@ def test_work_queue_speculate_refusals_and_grant():
     assert q.speculations == 1
 
 
-def test_queue_service_grants_speculative_lease_to_idle_worker():
+def test_queue_service_grants_speculative_lease_to_idle_worker(
+        fresh_registry):
     """An active worker whose normal lease comes back empty gets a
     duplicate of the slowest flagged in-flight id; a draining one never."""
     clock = SettableClock()
@@ -238,13 +261,15 @@ def test_queue_service_grants_speculative_lease_to_idle_worker():
     assert svc.complete([2], worker="w2") == [2]
     assert q.speculations == 1 and q.speculations_lost == 1
     assert q.finished
-    c = svc.metrics()["counters"]
-    assert c["speculations"] == 1 and c["redeliveries_speculated"] == 1
+    assert total(fresh_registry, "dist_speculations_total") == 1
+    assert total(fresh_registry, "dist_redeliveries_total",
+                 reason="speculated") == 1
 
 
 # ------------------------------------------------- store data plane unit
 
-def test_lease_chunks_grants_keys_and_reoffers_cached(tmp_path):
+def test_lease_chunks_grants_keys_and_reoffers_cached(tmp_path,
+                                                      fresh_registry):
     chunks = {w: np.full((1, 2, 16), w, np.float32) for w in range(2)}
     plane = StoreDataPlane(tmp_path / "dp")
     svc = QueueService(WorkQueue(2, lease_timeout_s=60.0),
@@ -257,8 +282,8 @@ def test_lease_chunks_grants_keys_and_reoffers_cached(tmp_path):
     assert dict(svc.lease_chunks("b", 2)) == keys     # the cached offer
     assert plane.store.stats.writes == 2
     assert plane.store.stats.dup_writes == 0
-    assert svc.metrics()["counters"]["fetch_bytes_store"] == sum(
-        len(k) for k in keys.values()) * 2
+    assert total(fresh_registry, "dist_fetch_bytes_total",
+                 plane="store") == sum(len(k) for k in keys.values()) * 2
 
 
 def test_lease_chunks_retired_item_and_missing_plane(tmp_path):
@@ -277,7 +302,7 @@ def test_lease_chunks_retired_item_and_missing_plane(tmp_path):
         QueueService(WorkQueue(1)).fetch(0)
 
 
-def test_fetch_many_is_one_pass_one_heartbeat():
+def test_fetch_many_is_one_pass_one_heartbeat(fresh_registry):
     svc = QueueService(WorkQueue(3, lease_timeout_s=60.0),
                        fetch_item=lambda wid: np.full((1, 2, 4), wid,
                                                       np.float32))
@@ -290,8 +315,8 @@ def test_fetch_many_is_one_pass_one_heartbeat():
     for wid, item in zip(ids, items):
         np.testing.assert_array_equal(item, np.full((1, 2, 4), wid,
                                                     np.float32))
-    assert svc.metrics()["counters"]["fetch_bytes_socket"] == \
-        3 * items[0].nbytes
+    assert total(fresh_registry, "dist_fetch_bytes_total",
+                 plane="socket") == 3 * items[0].nbytes
 
 
 def test_store_plane_pushed_but_unacked_redelivers_exactly_once(tmp_path):
@@ -361,7 +386,7 @@ def test_worker_skips_stale_fetch():
     assert [wid for _, wid, _ in svc.pop_results()] == [1]
 
 
-def test_store_plane_inproc_worker_round_trip(tmp_path):
+def test_store_plane_inproc_worker_round_trip(tmp_path, fresh_registry):
     """Over the store plane the socket carries no payload bytes: keys out,
     refs back, and the resolved payloads equal two_phase's bitwise."""
     stream = _stream(2, seed=9)
@@ -383,11 +408,12 @@ def test_store_plane_inproc_worker_round_trip(tmp_path):
     for wid, payload in got.items():
         np.testing.assert_array_equal(payload["cleaned"], want[wid].cleaned)
     assert len(plane.store) == 4
-    c = svc.metrics()["counters"]
     raw = sum(v.nbytes for v in chunks.values())
-    assert c["fetch_bytes_socket"] == 0 and c["push_bytes_socket"] == 0
-    assert 0 < c["fetch_bytes_store"] < raw * 0.1
-    assert 0 < c["push_bytes_store"] < raw * 0.1
+    moved = {(d, p): total(fresh_registry, f"dist_{d}_bytes_total", plane=p)
+             for d in ("fetch", "push") for p in ("socket", "store")}
+    assert moved["fetch", "socket"] == 0 and moved["push", "socket"] == 0
+    assert 0 < moved["fetch", "store"] < raw * 0.1
+    assert 0 < moved["push", "store"] < raw * 0.1
 
 
 def test_worker_drain_and_late_join_inproc():
@@ -445,7 +471,8 @@ def test_worker_drain_and_late_join_inproc():
 @pytest.mark.parametrize("transport,shards", [("proc", 1), ("proc", 2),
                                               ("tcp", 2)])
 def test_process_transport_bitwise_equal_to_two_phase(transport, shards,
-                                                      tmp_path):
+                                                      tmp_path,
+                                                      fresh_registry):
     """Real worker processes run two_phase on the same device: per work
     id bitwise equal to the port's two_phase, emitted in ascending order;
     the tcp run moves its bytes through the store plane."""
@@ -466,11 +493,12 @@ def test_process_transport_bitwise_equal_to_two_phase(transport, shards,
     for st in plan.worker_stats:
         assert st.state == "departed" and st.report["device"] == "cpu"
         assert st.pid != multiprocessing.current_process().pid
-    c = plan.fleet.service.metrics()["counters"]
     plane = "store" if transport == "tcp" else "socket"
     other = "socket" if transport == "tcp" else "store"
-    assert c[f"fetch_bytes_{plane}"] > 0 and c[f"push_bytes_{plane}"] > 0
-    assert c[f"fetch_bytes_{other}"] == 0 and c[f"push_bytes_{other}"] == 0
+    for d in ("fetch", "push"):
+        name = f"dist_{d}_bytes_total"
+        assert total(fresh_registry, name, plane=plane) > 0
+        assert total(fresh_registry, name, plane=other) == 0
 
 
 @pytest.mark.parametrize("plane", ["socket", "store"])
@@ -496,7 +524,7 @@ def test_sigkilled_worker_redelivered_exactly_once(plane, tmp_path):
     assert dead and dead[0].state == "dead" and dead[0].redeliveries >= 1
 
 
-def test_fleet_late_joiner_and_drain_over_processes():
+def test_fleet_late_joiner_and_drain_over_processes(fresh_registry):
     """`plan.fleet` mid-run: a late joiner spawned after the first result
     hellos into the run in progress, the original worker is drained out
     (it finishes what it holds and leaves through bye), and the joiner
@@ -522,8 +550,7 @@ def test_fleet_late_joiner_and_drain_over_processes():
     assert st["shard1"].chunks_done >= 1
     assert st["shard0"].chunks_done + st["shard1"].chunks_done == 4
     assert pre.plan.redeliveries == 0
-    counters = pre.plan.fleet.service.metrics()["counters"]
-    assert counters["workers_drained"] == 1
+    assert total(fresh_registry, "dist_workers_drained_total") == 1
 
 
 def test_worker_told_cuda_without_a_card_fails_the_run():
@@ -546,17 +573,17 @@ def test_workers_pinned_one_card_each_with_several(monkeypatch):
     k mod count of this process's visible set; with one card (or on the
     CPU) the environment is left as it is."""
     import torch
-    plan = Preprocessor(cfg, plan="sharded", shards=4, device="cpu").plan
-    assert plan._worker_env(1) == {}
-    plan.device = torch.device("cuda")
+    from repro_torch.device import worker_env
+    assert worker_env(torch.device("cpu"), 1) == {}
+    card = torch.device("cuda")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    assert plan._worker_env(1) == {}
+    assert worker_env(card, 1) == {}
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "5,7")
-    assert [plan._worker_env(k) for k in range(3)] == [
+    assert [worker_env(card, k) for k in range(3)] == [
         {"CUDA_VISIBLE_DEVICES": v} for v in ("5", "7", "5")]
     monkeypatch.delenv("CUDA_VISIBLE_DEVICES")
-    assert plan._worker_env(3) == {"CUDA_VISIBLE_DEVICES": "1"}
+    assert worker_env(card, 3) == {"CUDA_VISIBLE_DEVICES": "1"}
 
 
 def test_authkey_env_only_never_argv_never_error_text():

@@ -82,7 +82,8 @@ def _entry_points():
     from repro_torch.core.plans import (CachedPlan, FusedPlan, Preprocessor,
                                         ShardedPlan, TwoPhasePlan)
     from repro_torch.device import resolve_device
-    from repro_torch.launch import preprocess
+    from repro_torch.launch import preprocess, serve
+    from repro_torch.serve import PreprocessService, WorkerPool
     return {
         "resolve_device": lambda: resolve_device(),
         "Preprocessor": lambda: Preprocessor(cfg),
@@ -95,6 +96,9 @@ def _entry_points():
         "launch.preprocess": lambda: preprocess.main(["--minutes", "4"]),
         "launch.preprocess sharded": lambda: preprocess.main(
             ["--minutes", "4", "--plan", "sharded", "--transport", "tcp"]),
+        "WorkerPool": lambda: WorkerPool(cfg, transport="inproc"),
+        "PreprocessService": lambda: PreprocessService(cfg),
+        "launch.serve": lambda: serve.main(["--audio"]),
     }
 
 
@@ -102,7 +106,8 @@ def _entry_points():
                                   "TwoPhasePlan", "FusedPlan", "CachedPlan",
                                   "ShardedPlan", "Preprocessor sharded proc",
                                   "launch.preprocess",
-                                  "launch.preprocess sharded"])
+                                  "launch.preprocess sharded", "WorkerPool",
+                                  "PreprocessService", "launch.serve"])
 def test_entry_points_raise_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; this checks the CPU-only case")
