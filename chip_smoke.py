@@ -77,9 +77,29 @@ outside a checkout of the repo. Phases, any failure exits non-zero:
      `CrashInjector` SIGKILLs shard 1 at its second lease; every wid must
      be emitted once, bitwise equal to the unkilled run, with at least one
      redelivery.
-  5. one JSON line with every kernel's numbers (its launches summed over
-     the main-path runs, the workers' included), then the card's line and
-     the result line `{"ok": true, "device": {...}}` last.
+     Then the serving cells (a `WorkerPool` behind a `ContinuousBatcher`,
+     in-process and over 2 worker processes), a pool SIGKILL, and the
+     observability phase.
+  5. chaos: one pass of the first seed's stream without chaos (its wall
+     against the fleet's start), then `ft.chaos` schedules for seeds
+     `CHAOS_SEEDS` (at least one
+     SIGKILL, mid-run join, drain and SIGSTOP stall each, fired on
+     progress) against an elastic `ShardedPlan` of 2 worker processes on
+     the card over `CHAOS_BATCHES` batches of 2 long chunks: every wid
+     once, masks and cleaned audio bitwise equal to the in-process
+     two_phase on the card, every event fired, every `bye` from the card,
+     afterwards no worker process running or stopped and the card's used
+     memory within 256 MiB of its level before; across the seeds at least
+     one redelivery and one late joiner registered. Then
+     `chaos_speculation`: the holder of the last of 6 one-chunk batches
+     SIGSTOPped for 15 s at its grant, with speculation (factor 0) the idle
+     worker must win a duplicate lease and the stopped one be recorded
+     `"speculated"` in the telemetry; the same without speculation; both
+     walls and end-of-stream tails printed.
+  6. one JSON line with every kernel's numbers (its launches summed over
+     the main-path runs, the workers' included), the whole run's wall,
+     then the card's line and the result line `{"ok": true, "device":
+     {...}}` last.
 
 It imports only `repro_torch`, `torch` and numpy.
 """
@@ -878,6 +898,7 @@ def main_path(torch, np, card):
     stream8 = batches + [(w, make(w)) for w in range(3, PROC_BATCHES)]
     runs.update(proc_cells(torch, np, stream8, base, card))
     runs.update(serve_cells(torch, np, batches, base, stream8))
+    runs.update(chaos_phases(np))
     return runs
 
 
@@ -1532,6 +1553,354 @@ def serve_cells(torch, np, batches, base, stream8):
     return runs
 
 
+# ---------------------------------------------------------- the chaos phases
+
+CHAOS_SEEDS = (11, 23, 37)
+CHAOS_BATCHES = 6               # batches of 2 long chunks a seed's stream
+CHAOS_NEED = ("fir_hpf", "stft_dft", "fused_tail")
+CHAOS_MEM_SLACK_MIB = 256       # the card's used memory after a chaos run
+SPEC_BATCHES = 6
+SPEC_STALL_S = 15.0
+
+
+def proc_state(pid):
+    """The state letter in /proc/<pid>/stat ("T": stopped), None once the
+    pid is gone."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0]
+    except OSError:
+        return None
+
+
+def used_mib():
+    return float(nvidia_smi("memory.used").split()[0])
+
+
+def fleet_leftovers(fleet):
+    """Worker processes of a finished run still running or stopped:
+    [(shard, pid, state)]."""
+    out = []
+    for k, h in sorted(fleet.handles.items()):
+        st = proc_state(h.pid)
+        if h.poll() is None or st in ("T", "t"):
+            out.append((k, h.pid, st))
+    return out
+
+
+def memory_back(before, slack):
+    """The card's used memory, read until it is within `slack` MiB of
+    `before` (the exited workers' contexts are freed a moment after they
+    exit) or 20 s have passed."""
+    for _ in range(40):
+        now = used_mib()
+        if now <= before + slack:
+            break
+        time.sleep(0.5)
+    return now
+
+
+def caching_maker(make):
+    """`make` remembering what it made: the chaos run's batches, later
+    compared with two_phase on the same arrays without synthesising
+    them again."""
+    made = {}
+
+    def get(wid):
+        if wid not in made:
+            made[wid] = make(wid)
+        return made[wid]
+    return get, made
+
+
+def check_against_two_phase(np, label, results, made, two_phase, n):
+    wids = sorted(r.wid for r in results)
+    check(wids == list(range(n)),
+          f"{label}: emitted {wids}, not every wid exactly once")
+    for r in results:
+        want = two_phase(made[r.wid][0])
+        check_masks(want.det, r.det, f"{label}, batch {r.wid}")
+        check(np.array_equal(want.cleaned, r.cleaned),
+              f"{label}: batch {r.wid} differs from two_phase on the card "
+              f"(bitwise)")
+
+
+def workers_record(plan):
+    return [{"worker": st.worker, "pid": st.pid, "state": st.state,
+             "chunks_done": st.chunks_done, "idle_s": st.idle_s,
+             "busy_s": st.busy_s,
+             "device": (st.report or {}).get("device"),
+             "launches": (st.report or {}).get("launches")}
+            for st in plan.worker_stats]
+
+
+def chaos_baseline():
+    """The first seed's stream with no chaos (2 worker processes, not
+    elastic): its wall against the fleet's start. A joiner fired after 1-2
+    accepted chunks needs about one fleet start to say hello, so this is
+    the yardstick for CHAOS_BATCHES."""
+    from repro_torch import kernels
+    from repro_torch.configs import SERF_AUDIO
+    from repro_torch.core.plans import Preprocessor
+    from repro_torch.data.loader import audio_batch_maker, make_shard_pool
+
+    make = audio_batch_maker(seed=CHAOS_SEEDS[0], batch_long_chunks=2)
+    pool = make_shard_pool(make, CHAOS_BATCHES, 2, lease_timeout_s=300.0)
+    pre = Preprocessor(SERF_AUDIO, plan="sharded", shards=2,
+                       transport="proc")
+    t0 = time.perf_counter()
+    wids = sorted(r.wid for r in pre.run(pool))
+    wall = time.perf_counter() - t0
+    workers = workers_record(pre.plan)
+    start = pre.plan.fleet_start_s
+    rec = {"seed": CHAOS_SEEDS[0], "batches": CHAOS_BATCHES, "wall_s": wall,
+           "fleet_start_s": start, "wall_over_fleet_start": wall / start,
+           "workers": workers,
+           "launches": {n: sum(w["launches"][n] for w in workers)
+                        for n in kernels.KERNELS}}
+    print(json.dumps({"chaos_baseline": rec}), flush=True)
+    check(wids == list(range(CHAOS_BATCHES)),
+          f"chaos_baseline: emitted {wids}")
+    return rec
+
+
+def chaos_seed(np, seed, two_phase):
+    """One seeded schedule (a SIGKILL, a mid-run join, a drain and a
+    SIGSTOP stall at least) against 2 worker processes on the card over
+    CHAOS_BATCHES batches: each wid once, bitwise equal to the in-process
+    two_phase, every event fired, every bye from the card, no worker left
+    running or stopped, the card's memory back."""
+    from repro_torch import kernels
+    from repro_torch.configs import SERF_AUDIO
+    from repro_torch.core.plans import Preprocessor
+    from repro_torch.data.loader import audio_batch_maker, make_shard_pool
+    from repro_torch.ft.chaos import ACTIONS, ChaosRunner, make_schedule
+
+    label = f"chaos seed {seed}"
+    make, made = caching_maker(audio_batch_maker(seed=seed,
+                                                 batch_long_chunks=2))
+    pool = make_shard_pool(make, CHAOS_BATCHES, 2, lease_timeout_s=300.0)
+    pre = Preprocessor(SERF_AUDIO, plan="sharded", shards=2,
+                       transport="proc", elastic=True)
+    check(pre.device.type == "cuda", "Preprocessor did not pick the card")
+    schedule = make_schedule(seed, CHAOS_BATCHES)
+    before = used_mib()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        results, fired = ChaosRunner(pre.plan, pool, schedule,
+                                     seed=seed).run()
+    except RuntimeError as e:
+        raise SmokeFailure(f"{label}: the run raised: {e}") from e
+    wall = time.perf_counter() - t0
+    master = kernels.launches()
+    plan = pre.plan
+    leftovers = fleet_leftovers(plan.fleet)
+    after = memory_back(before, CHAOS_MEM_SLACK_MIB)
+    workers = workers_record(plan)
+    names = {w["worker"] for w in workers}
+    joiners = sorted({f"shard{e.target}" for e in fired
+                      if e.action == "join"} & names)
+    byes = [w for w in workers if w["device"] is not None]
+    launches = {n: sum((w["launches"] or {}).get(n, 0) for w in byes)
+                for n in kernels.KERNELS}
+    by_action = {a: sum(e.action == a for e in fired) for a in ACTIONS}
+    rec = {"chaos": {
+        "seed": seed, "batches": CHAOS_BATCHES,
+        "fired": [{"action": e.action, "after_done": e.after_done,
+                   "fired_at_done": e.fired_at_done, "target": e.target,
+                   "deferred": e.deferred, "stall_s": e.stall_s}
+                  for e in fired],
+        "by_action": by_action,
+        "redeliveries": plan.redeliveries,
+        "speculations": plan.speculations,
+        "speculations_lost": plan.speculations_lost,
+        "joiners_registered": joiners, "fleet_start_s": plan.fleet_start_s,
+        "wall_s": wall, "workers": workers, "launches": launches,
+        "master_launches": master, "leftovers": leftovers,
+        "used_mib_before": before, "used_mib_after": after}}
+    print(json.dumps(rec), flush=True)
+    check([e.action for e in schedule if not e.fired] == [],
+          f"{label}: events never fired: "
+          f"{[e.action for e in schedule if not e.fired]}")
+    check(all(by_action[a] >= 1 for a in ACTIONS),
+          f"{label}: not every action fired ({by_action})")
+    check(not leftovers, f"{label}: worker processes left running or "
+                         f"stopped: {leftovers}")
+    check(after <= before + CHAOS_MEM_SLACK_MIB,
+          f"{label}: the card's used memory is {after:.0f} MiB after the "
+          f"run, {before:.0f} MiB before")
+    check(byes and all(w["device"] == "cuda" for w in byes),
+          f"{label}: a worker signed off from another device than the card")
+    check(all(sum((w["launches"] or {}).values()) > 0
+              for w in byes if w["chunks_done"]),
+          f"{label}: a worker that did chunks reported no kernel launches")
+    for n in CHAOS_NEED:
+        check(launches[n] > 0, f"{label}: the workers never launched {n}")
+    check(not any(master.values()),
+          f"{label}: the master launched kernels {master}")
+    check_against_two_phase(np, label, results, made, two_phase,
+                            CHAOS_BATCHES)
+    return rec["chaos"]
+
+
+def straggler_pass(np, speculate, two_phase):
+    """seed 7, SPEC_BATCHES batches of one long chunk, 2 worker processes
+    on the card: the holder of the last chunk is SIGSTOPped for
+    SPEC_STALL_S the moment it is granted it. With speculation (factor 0,
+    history 1: any item in flight is a straggler once one is done) the
+    idle worker must win a duplicate lease and the stopped one be recorded
+    as its loser. Returns the record, with the end-of-stream tail: the
+    gap between the last two acceptances in the telemetry."""
+    import tempfile
+    import threading
+
+    from repro_torch import kernels
+    from repro_torch.configs import SERF_AUDIO
+    from repro_torch.core.plans import Preprocessor
+    from repro_torch.data.loader import audio_batch_maker, make_shard_pool
+    from repro_torch.obs.telemetry import (TelemetryWriter, read_records,
+                                           worker_ledger)
+
+    label = f"chaos_speculation (speculate={speculate})"
+    make, made = caching_maker(audio_batch_maker(seed=7,
+                                                 batch_long_chunks=1))
+    pool = make_shard_pool(make, SPEC_BATCHES, 2, lease_timeout_s=300.0)
+    out = ROOT / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    tdir = tempfile.mkdtemp(prefix="chaos_spec_", dir=out)
+    telem = TelemetryWriter(tdir)
+    kw = ({"speculate": True, "straggler_factor": 0.0,
+           "straggler_min_history": 1} if speculate else
+          {"speculate": False})
+    pre = Preprocessor(SERF_AUDIO, plan="sharded", shards=2,
+                       transport="proc", telemetry=telem, **kw)
+    plan = pre.plan
+    results, err, stalled = [], [], []
+
+    def consume():
+        try:
+            results.extend(plan.run(pool))
+        except BaseException as e:      # noqa: BLE001 (checked below)
+            err.append(e)
+
+    def on_grant(worker, wid):
+        if wid == SPEC_BATCHES - 1 and not stalled:
+            stalled.append(worker)
+            plan.fleet.stall(plan.fleet.service.workers[worker].shard,
+                             SPEC_STALL_S)
+
+    before = used_mib()
+    t = threading.Thread(target=consume, daemon=True, name="spec-consumer")
+    t0 = time.perf_counter()
+    t.start()
+    try:
+        while plan.fleet is None and t.is_alive():
+            time.sleep(0.005)
+        if plan.fleet is not None:
+            plan.fleet.service.on_grant = on_grant
+        t.join(600.0)
+        wall = time.perf_counter() - t0
+        check(not t.is_alive(), f"{label}: the run hung")
+        check(not err, f"{label}: the run raised {err[:1]}")
+    finally:
+        telem.close()
+    recs = read_records(tdir)
+    shutil.rmtree(tdir, ignore_errors=True)
+    leftovers = fleet_leftovers(plan.fleet)
+    after = memory_back(before, CHAOS_MEM_SLACK_MIB)
+    ts = sorted(r["accept_ts"] for r in recs
+                if r.get("status") == "done" and r.get("accept_ts"))
+    tail = float(ts[-1] - ts[-2]) if len(ts) >= 2 else 0.0
+    last = [r for r in recs if r.get("status") == "done"
+            and r["wid"] == SPEC_BATCHES - 1]
+    lost = sorted({r["worker"] for r in recs
+                   if r.get("status") == "redelivered"
+                   and r.get("reason") == "speculated"})
+    ledger = worker_ledger(recs)
+    workers = workers_record(plan)
+    launches = {n: sum((w["launches"] or {}).get(n, 0) for w in workers)
+                for n in kernels.KERNELS}
+    rec = {"speculate": speculate, "stalled": stalled,
+           "stall_s": SPEC_STALL_S,
+           "last_chunk_done_by": [r["worker"] for r in last],
+           "speculated_losers": lost,
+           "speculation_lost": {w: e["speculation_lost"]
+                                for w, e in ledger.items()},
+           "speculations": plan.speculations,
+           "speculations_lost": plan.speculations_lost,
+           "fleet_start_s": plan.fleet_start_s, "wall_s": wall,
+           "tail_s": tail, "workers": workers, "launches": launches,
+           "leftovers": leftovers, "used_mib_before": before,
+           "used_mib_after": after}
+    check(stalled, f"{label}: the last chunk was never granted")
+    check(not leftovers, f"{label}: worker processes left running or "
+                         f"stopped: {leftovers}")
+    check(after <= before + CHAOS_MEM_SLACK_MIB,
+          f"{label}: the card's used memory is {after:.0f} MiB after the "
+          f"run, {before:.0f} MiB before")
+    done = sorted(r["wid"] for r in recs if r.get("status") == "done")
+    check(done == list(range(SPEC_BATCHES)),
+          f"{label}: telemetry done records for wids {done}")
+    check_against_two_phase(np, label, results, made, two_phase,
+                            SPEC_BATCHES)
+    if speculate:
+        check(plan.speculations >= 1 and plan.speculations_lost >= 1,
+              f"{label}: {plan.speculations} speculations, "
+              f"{plan.speculations_lost} lost")
+        check([r["worker"] for r in last] != stalled,
+              f"{label}: the stopped worker {stalled} completed the last "
+              f"chunk, not the idle survivor")
+        check(lost == stalled, f"{label}: losers attributed "
+                               f"\"speculated\" are {lost}, not {stalled}")
+    else:
+        check(plan.speculations == 0 and not lost,
+              f"{label}: speculation ran with speculate=False")
+    return rec
+
+
+def chaos_phases(np):
+    """The chaos gate over CHAOS_SEEDS, then the straggler scenario with
+    speculation on and off. Returns {label: {"launches": ...}}, the
+    workers' launches, for the kernel lines."""
+    from repro_torch.configs import SERF_AUDIO
+    from repro_torch.core.plans import Preprocessor
+
+    two_phase = Preprocessor(SERF_AUDIO, plan="two_phase")
+    t0 = time.perf_counter()
+    baseline = chaos_baseline()
+    runs = {f"chaos_seed{seed}": chaos_seed(np, seed, two_phase)
+            for seed in CHAOS_SEEDS}
+    redeliveries = sum(r["redeliveries"] for r in runs.values())
+    joiners = {s: r["joiners_registered"] for s, r in runs.items()}
+    chaos_wall = time.perf_counter() - t0
+    print(f"chaos: seeds {list(CHAOS_SEEDS)}, {CHAOS_BATCHES} batches each, "
+          f"exactly once and bitwise; redeliveries {redeliveries}, late "
+          f"joiners registered {joiners}; phase wall {chaos_wall:.1f} s",
+          flush=True)
+    check(redeliveries >= 1, "chaos: no schedule produced a redelivery")
+    check(any(joiners.values()),
+          "chaos: no late joiner registered before its stream drained")
+
+    t1 = time.perf_counter()
+    spec = {on: straggler_pass(np, on, two_phase) for on in (True, False)}
+    spec_wall = time.perf_counter() - t1
+    rec = {"chaos_speculation": {
+        "batches": SPEC_BATCHES, "stall_s": SPEC_STALL_S,
+        "on": spec[True], "off": spec[False], "phase_wall_s": spec_wall}}
+    print(json.dumps(rec), flush=True)
+    print(f"chaos_speculation: a {SPEC_STALL_S:.0f} s stall of the last "
+          f"chunk's holder; speculation on: wall {spec[True]['wall_s']:.3f} "
+          f"s, tail {spec[True]['tail_s']:.3f} s (won by "
+          f"{spec[True]['last_chunk_done_by']}, loser "
+          f"{spec[True]['speculated_losers']}); off: wall "
+          f"{spec[False]['wall_s']:.3f} s, tail {spec[False]['tail_s']:.3f} "
+          f"s; phase wall {spec_wall:.1f} s", flush=True)
+    runs.update({f"chaos_speculation_{'on' if on else 'off'}": r
+                 for on, r in spec.items()}, chaos_baseline=baseline)
+    return {label: {"launches": r["launches"]} for label, r in runs.items()}
+
+
 def check_masks(a, b, what):
     for m in ("keep", "rain", "silence", "cicada15"):
         check(bool((getattr(a, m).cpu() == getattr(b, m).cpu()).all()),
@@ -1638,6 +2007,7 @@ def main():
         print("chip_smoke: src/repro_torch not found beside this script; "
               "run it from a checkout of the repo", file=sys.stderr)
         return 2
+    t_smoke = time.perf_counter()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -1686,6 +2056,8 @@ def main():
               file=sys.stderr)
         return 1
     summary = {"kernels": [results[n] for n in KERNELS]}
+    print(f"chip_smoke: wall {time.perf_counter() - t_smoke:.1f} s",
+          flush=True)
     print(card_line, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -483,17 +483,12 @@ def _merge_outputs(outs):
                           cicada15=cat("cicada15"), stats=stats)
 
 
-# speculation: an item is a straggler once it has run STRAGGLER_FACTOR x
-# the p95 of at least STRAGGLER_MIN_HISTORY completed items' latencies
-STRAGGLER_FACTOR = 2.0
-STRAGGLER_MIN_HISTORY = 4
-
-
 class FleetControl:
     """Live handle on a process fleet, published as `plan.fleet` while
     `ShardedPlan._run_proc` runs (and left in place afterwards for the
     service's worker ledger): spawn a late joiner, drain a worker out
-    gracefully, or SIGKILL one. A late joiner goes through the same
+    gracefully, SIGKILL one or SIGSTOP-stall one. The chaos harness
+    (`ft.chaos`) drives it. A late joiner goes through the same
     `spawn_worker` + `hello` as the original fleet."""
 
     def __init__(self, plan, service, transport, handles):
@@ -520,6 +515,7 @@ class FleetControl:
             self._next = max(self._next, int(shard) + 1)
         h = self.transport.spawn_worker(
             shard, lease_items=self.plan.lease_items,
+            poll_s=self.plan.worker_poll_s,
             env_extra=worker_env(self.plan.device, int(shard)))
         self.service.reserve(h.pid, int(shard))
         self.handles[int(shard)] = h
@@ -535,6 +531,17 @@ class FleetControl:
     def kill(self, shard):
         """SIGKILL one worker: it dies holding whatever it holds."""
         self.handles[int(shard)].kill()
+
+    def stall(self, shard, seconds=None):
+        """SIGSTOP one worker, SIGCONT after `seconds` (a genuine
+        straggler: its lease clock ticks, it sends no heartbeats)."""
+        self.handles[int(shard)].stall(seconds)
+
+    def resume_all(self):
+        """SIGCONT every worker (teardown: a stopped process holds a
+        SIGTERM, and its card memory, until it is continued)."""
+        for h in list(self.handles.values()):
+            h.resume()
 
 
 class ShardedPlan(TwoPhasePlan):
@@ -581,13 +588,23 @@ class ShardedPlan(TwoPhasePlan):
     in-process shard runs on this plan's device. `telemetry` (a
     `obs.telemetry.TelemetryWriter`) goes to the QueueService of either
     mode, which writes the per-chunk records on the master.
+
+    Elasticity (process mode): `worker_poll_s` is a worker's sleep after
+    an empty lease; `speculate` re-leases an item once it has run
+    `straggler_factor` x the p95 of at least `straggler_min_history`
+    completed items' latencies; `elastic=True` (set by `ft.chaos`) stops
+    the master failing the run the moment every worker process has
+    exited, since a joiner may be a spawn away; `stall_timeout_s` stays
+    the backstop.
     """
     name = "sharded"
 
     def __init__(self, graph, pad_multiple=1, shards=2, lease_items=1,
                  injector=None, monitor=None, transport="inproc",
-                 stall_timeout_s=300.0, lease_timeout_s=None,
-                 speculate=None, data_plane=None, telemetry=None,
+                 worker_poll_s=0.05, stall_timeout_s=300.0,
+                 lease_timeout_s=None, speculate=None,
+                 straggler_factor=2.0, straggler_min_history=4,
+                 elastic=False, data_plane=None, telemetry=None,
                  device=None):
         super().__init__(graph, pad_multiple, device=device)
         self.shards = max(1, int(shards))
@@ -595,6 +612,7 @@ class ShardedPlan(TwoPhasePlan):
         self.injector = injector
         self.monitor = monitor
         self.transport = transport
+        self.worker_poll_s = float(worker_poll_s)
         self.stall_timeout_s = float(stall_timeout_s)
         # lease deadline of the plan's internal queue (plain-stream runs;
         # a caller's pool brings its own queue); None: the transport's
@@ -604,6 +622,9 @@ class ShardedPlan(TwoPhasePlan):
         # processes, off for the simulated loop (where a duplicate only
         # burns the one host)
         self.speculate = speculate
+        self.straggler_factor = float(straggler_factor)
+        self.straggler_min_history = int(straggler_min_history)
+        self.elastic = bool(elastic)
         self.data_plane = data_plane
         self.telemetry = telemetry
         self.fleet = None               # FleetControl while _run_proc lives
@@ -749,8 +770,8 @@ class ShardedPlan(TwoPhasePlan):
             else bool(self.speculate)
         if not on:
             return None
-        return StragglerDetector(factor=STRAGGLER_FACTOR,
-                                 min_history=STRAGGLER_MIN_HISTORY)
+        return StragglerDetector(factor=self.straggler_factor,
+                                 min_history=self.straggler_min_history)
 
     def _finish_run(self, service, queue):
         self.redeliveries = queue.redeliveries
@@ -874,6 +895,7 @@ class ShardedPlan(TwoPhasePlan):
 
     def _run_proc(self, pool, queue):
         t_start = time.monotonic()
+        self.fleet = None           # not the last run's, until this one's
         make_item = pool[0].make_item
         extras = {}                 # wid -> labels/_StreamMeta, master-side
 
@@ -943,6 +965,8 @@ class ShardedPlan(TwoPhasePlan):
                 except Exception:
                     pass
         finally:
+            if self.fleet is not None:
+                self.fleet.resume_all()   # never TERM a stopped worker
             for h in list(handles.values()):
                 h.shutdown()
             tp.close()
@@ -1017,7 +1041,8 @@ class ShardedPlan(TwoPhasePlan):
                 for w in sorted(set(self.monitor.dead())):
                     service.fail_worker(w)
                     self.monitor.forget(w)
-            if all(h.poll() is not None for h in handles.values()) \
+            if not self.elastic \
+                    and all(h.poll() is not None for h in handles.values()) \
                     and not queue.finished:
                 raise RuntimeError(
                     "sharded plan stalled: every worker process exited "

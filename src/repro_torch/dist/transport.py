@@ -145,6 +145,35 @@ class WorkerHandle:
         except ProcessLookupError:
             pass
 
+    def stall(self, seconds=None):
+        """SIGSTOP: freeze the worker where it is (a genuine straggler: no
+        heartbeats, no pushes, its lease clock keeps ticking). With
+        `seconds`, a daemon timer sends SIGCONT after that long; without,
+        call `resume()`. A worker on the card keeps its CUDA context and
+        allocations while stopped, and a SIGTERM to it is held until it is
+        continued: resume before `shutdown`."""
+        if self.proc.poll() is not None:
+            return
+        try:
+            os.kill(self.proc.pid, signal.SIGSTOP)
+        except ProcessLookupError:
+            return
+        if seconds is not None:
+            t = threading.Timer(float(seconds), self.resume)
+            t.daemon = True
+            t.start()
+
+    def resume(self):
+        """SIGCONT a stalled worker (a no-op if it is running or gone: a
+        timer that fires after the run's teardown signals nothing, since a
+        reaped pid may have been reused)."""
+        if self.proc.poll() is not None:
+            return
+        try:
+            os.kill(self.proc.pid, signal.SIGCONT)
+        except ProcessLookupError:
+            pass
+
     def shutdown(self, timeout=5.0):
         """Best-effort teardown at end of run: TERM, wait, then KILL."""
         if self.proc.poll() is None:

@@ -47,6 +47,13 @@ class CrashInjector:
         becomes a real SIGKILL."""
         self._pids[shard] = int(pid)
 
+    def revive(self, shard):
+        """Forget `shard`'s death, fuse and pid: a respawned worker under
+        the same shard id starts clean."""
+        self._dead.discard(shard)
+        self._fuse.pop(shard, None)
+        self._pids.pop(shard, None)
+
     def alive(self, shard) -> bool:
         return shard not in self._dead
 

@@ -518,3 +518,88 @@ def test_obs_hooks_on_card_results(card, tmp_path):
     assert chunks["value"] == sum(r.det.keep.numel() for r in got)
     recs = obs_telemetry.read_records(str(tmp_path))
     assert [r["survivors"] for r in recs] == [r.n_kept for r in got]
+
+
+# ------------------------------------------------- the chaos harness
+
+def _proc_state(pid):
+    """The state letter in /proc/<pid>/stat ("T": stopped), None once the
+    pid is gone."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0]
+    except OSError:
+        return None
+
+
+def test_stalled_cuda_worker_resumes_bitwise(card):
+    """The one worker process holds a CUDA context when it is SIGSTOPped
+    at the grant of wid 1; once it reads stopped it is continued, and
+    every later result is bitwise equal to two_phase in this process."""
+    import threading
+    import time
+    stream = _stream(3)
+    want = list(Preprocessor(cfg, plan="two_phase").run(stream))
+    pre = Preprocessor(cfg, plan="sharded", shards=1, transport="proc",
+                       stall_timeout_s=300.0)
+    plan = pre.plan
+    stalled, got, err = [], [], []
+
+    def on_grant(worker, wid):
+        if wid == 1 and not stalled:
+            stalled.append(plan.fleet.handles[0].pid)
+            plan.fleet.stall(0)
+
+    def consume():
+        try:
+            got.extend(pre.run(stream))
+        except BaseException as e:      # noqa: BLE001 (asserted below)
+            err.append(e)
+
+    t = threading.Thread(target=consume, daemon=True)
+    t.start()
+    for _ in range(30000):
+        if plan.fleet is not None or not t.is_alive():
+            break
+        time.sleep(0.001)
+    plan.fleet.service.on_grant = on_grant
+    for _ in range(30000):             # until the worker is stopped
+        if stalled and _proc_state(stalled[0]) == "T":
+            break
+        t.join(0.01)
+    assert stalled and _proc_state(stalled[0]) == "T"
+    assert len(got) <= 1               # nothing past the stall came back
+    plan.fleet.resume_all()
+    t.join(300.0)
+    assert not t.is_alive() and not err, err
+    _assert_same(got, want)
+    (st,) = plan.worker_stats
+    assert st.report["device"] == "cuda" and st.chunks_done == 3
+    assert _proc_state(stalled[0]) is None
+
+
+def test_chaos_runner_on_card_leaves_no_worker(card):
+    """A seeded schedule (kill, join, drain, stall) over 2 worker
+    processes on the card: every wid once, bitwise equal to two_phase, and
+    afterwards no worker process running or stopped."""
+    from repro_torch.data.loader import make_shard_pool
+    from repro_torch.ft.chaos import ACTIONS, ChaosRunner, make_schedule
+    n = 6
+    make = audio_batch_maker(seed=23, batch_long_chunks=1)
+    pool = make_shard_pool(make, n, 2, lease_timeout_s=300.0)
+    pre = Preprocessor(cfg, plan="sharded", shards=2, transport="proc",
+                       stall_timeout_s=300.0)
+    schedule = make_schedule(23, n, stall_s=(1.0, 2.0))
+    got, fired = ChaosRunner(pre.plan, pool, schedule, seed=23).run()
+    assert sorted(r.wid for r in got) == list(range(n))
+    assert all(e.fired for e in schedule)
+    assert {e.action for e in fired} == set(ACTIONS)
+    two_phase = Preprocessor(cfg, plan="two_phase")
+    _assert_same(sorted(got, key=lambda r: r.wid),
+                 [dataclasses.replace(two_phase(make(w)[0]), wid=w)
+                  for w in range(n)])
+    handles = pre.plan.fleet.handles
+    assert len(handles) >= 3           # the join spawned a third
+    for h in handles.values():
+        assert h.poll() is not None
+        assert _proc_state(h.pid) in (None, "Z")
