@@ -22,7 +22,9 @@ outside a checkout of the repo. Phases, any failure exits non-zero:
      860 steps, measured in the run beside `bound_ms` (not a bound of the
      function). The direct-DFT paths of the STFT and fused-tail kernels
      (`stft_dft_generic`, `fused_tail_generic`) at windows 382 and 200, the
-     fused tail with and without the high-pass.
+     fused tail with and without the high-pass and, at 382, with
+     noise_est_frames = 100. Beside each kernel's median: the least and
+     the most of its 10 runs and the SM clock read right after them.
   3. main path: eight cells (`CELLS`) of `Preprocessor(SERF_AUDIO, ...)`
      on the card over 3 batches of `audio_batch_maker(seed=25,
      batch_long_chunks=4)` (12 minutes of stereo 44.1 kHz audio):
@@ -51,11 +53,13 @@ outside a checkout of the repo. Phases, any failure exits non-zero:
      `build/chip_smoke/`). Then a kill and resume of the cached cell with
      a run journal (one result taken, the generator closed, the run
      resumed: batches [0, 1, 2] once each, 2 misses, output bitwise equal
-     to two_phase's), and batch 0 at a 382-sample window through
-     two_phase, whose run must launch the direct-DFT kernels and match the
-     port's CPU run. The sharded cell's masks must equal the fused
-     two_phase cell's and its cleaned audio the staged cell's within rtol
-     1e-4 / atol 1e-5.
+     to two_phase's), and the 3 batches at a 382-sample window through
+     two_phase (`serf_w382_two_phase`), whose run must launch the
+     direct-DFT kernels and whose batch 0 must match the port's CPU run,
+     timed in turns with `serf_two_phase_fused` (5 passes each, both MB/s
+     printed). The sharded cell's masks must equal the fused two_phase
+     cell's and its cleaned audio the staged cell's within rtol 1e-4 /
+     atol 1e-5.
   4. worker processes: two cells (`PROC_CELLS`) of the sharded plan with
      2 real worker processes on the one card (`transport="proc"`, one work
      id a lease), over 8 batches of the same stream (wids 0-2 the cells'
@@ -174,6 +178,18 @@ class Timer:
                                  device="cuda")
 
     def __call__(self, fn, reps=10, warmup=2):
+        return statistics.median(self.times(fn, reps, warmup))
+
+    def kernel(self, fn):
+        """A kernel's median (`ms`) with the least and the most of its 10
+        runs and the SM clock read right after them: what tells an
+        outlier from a change."""
+        times = self.times(fn)
+        return {"ms": statistics.median(times), "ms_min": min(times),
+                "ms_max": max(times),
+                "sm_clock_mhz": float(nvidia_smi("clocks.sm").split()[0])}
+
+    def times(self, fn, reps=10, warmup=2):
         torch = self.torch
         for _ in range(warmup):
             fn()
@@ -187,7 +203,10 @@ class Timer:
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
-        return statistics.median(times)
+        return times
+
+
+SPREAD = ("ms_min", "ms_max", "sm_clock_mhz")   # beside every kernel's ms
 
 
 def rfft_flops(n):
@@ -287,7 +306,7 @@ def kernel_checks(torch, np, timer, peak_flops):
         return dict(
             shape=f"x ({B}, {S}) -> ({B}, {out_len}), T={T}, s={stride}",
             err=err, ok=ok,
-            ms=timer(lambda: fir_ops.fir_cuda(x, taps_np, stride)),
+            **timer.kernel(lambda: fir_ops.fir_cuda(x, taps_np, stride)),
             plain_ms=timer(lambda: fir_ref.fir_ref(x, taps_np, stride)),
             library_ms=timer(lambda: F.conv1d(xp, w, stride=stride)),
             n_bytes=n_bytes, n_flops=n_flops, bound_ms=b_ms, bound_by=b_by)
@@ -307,12 +326,14 @@ def kernel_checks(torch, np, timer, peak_flops):
 
     def sub(d):
         return {"shape": d["shape"], "max_abs_err": d["err"], "ms": d["ms"],
+                **{k: d[k] for k in SPREAD},
                 "plain_ms": d["plain_ms"], "library_ms": d["library_ms"],
                 "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
                 "bytes": d["n_bytes"], "flops": d["n_flops"]}
 
     record("fir_hpf", c["shape"], c["err"], c["ok"], c["ms"], c["plain_ms"],
            c["library_ms"], c["n_bytes"], c["n_flops"],
+           **{k: c[k] for k in SPREAD},
            library_call="torch.nn.functional.conv1d (cuDNN, TF32 off)",
            stride1=sub(s1), serving_batch1=sub(s1b))
 
@@ -340,7 +361,8 @@ def kernel_checks(torch, np, timer, peak_flops):
         b_ms, b_by = bound(n_bytes, n_flops, peak_flops)
         c = dict(
             shape=f"x ({B}, {S}) -> ({B}, {Fr}, {K}) complex, W={W}",
-            err=err, ok=ok, ms=timer(lambda: stft_ops.stft_cuda(x, W, H)),
+            err=err, ok=ok,
+            **timer.kernel(lambda: stft_ops.stft_cuda(x, W, H)),
             plain_ms=timer(lambda: stft_ref.stft_ref(x, W, H)),
             library_ms=timer(lambda: torch.stft(
                 x, n_fft=W, hop_length=H, window=win, center=False,
@@ -353,6 +375,7 @@ def kernel_checks(torch, np, timer, peak_flops):
     def stft_record(name, c, **more):
         record(name, c["shape"], c["err"], c["ok"], c["ms"], c["plain_ms"],
                c["library_ms"], c["n_bytes"], c["n_flops"],
+               **{k: c[k] for k in SPREAD},
                library_call="torch.stft (cuFFT; (B, K, F) layout)",
                library_max_abs_err=c["library_max_abs_err"],
                kernel_over_library=c["kernel_over_library"], **more)
@@ -364,7 +387,7 @@ def kernel_checks(torch, np, timer, peak_flops):
                     f"its plain version (max |err| {c4['err']:.3g})")
     stft_record("stft_dft", stft_case(cfg.stft_window, x16),
                 serving_batch1={
-                    k: c4[k] for k in ("shape", "ms", "plain_ms",
+                    k: c4[k] for k in ("shape", "ms", *SPREAD, "plain_ms",
                                        "library_ms", "bound_ms", "bound_by",
                                        "kernel_over_library")}
                 | {"max_abs_err": c4["err"], "bytes": c4["n_bytes"],
@@ -374,8 +397,9 @@ def kernel_checks(torch, np, timer, peak_flops):
     check(c200["ok"], f"stft_dft_generic (W=200): kernel disagrees with its "
                       f"plain version (max |err| {c200['err']:.3g})")
     stft_record("stft_dft_generic", stft_case(382, x16), w200={
-        k: c200[k] for k in ("shape", "ms", "plain_ms", "library_ms",
-                             "bound_ms", "bound_by", "kernel_over_library")}
+        k: c200[k] for k in ("shape", "ms", *SPREAD, "plain_ms",
+                             "library_ms", "bound_ms", "bound_by",
+                             "kernel_over_library")}
         | {"max_abs_err": c200["err"], "bytes": c200["n_bytes"],
            "flops": c200["n_flops"]})
     del x16
@@ -401,7 +425,8 @@ def kernel_checks(torch, np, timer, peak_flops):
         return dict(
             power=power, noise=noise, err=err, ok=ok,
             shape=f"power ({R}, {Fv}, {K}), noise ({R}, {K})",
-            ms=timer(lambda: mmse_ops.mmse_gain_cuda(power, noise, *args)),
+            **timer.kernel(lambda: mmse_ops.mmse_gain_cuda(power, noise,
+                                                           *args)),
             plain_ms=(timer(lambda: mmse_ref.mmse_stsa_gain_ref(
                 power, noise, *args), reps=3, warmup=1) if time_plain
                 else None),
@@ -418,10 +443,12 @@ def kernel_checks(torch, np, timer, peak_flops):
     chain_ms = timer(lambda: mmse_ops.mmse_gain_cuda(p1, n1, *args))
     record("mmse_stsa", m["shape"], m["err"], m["ok"], m["ms"],
            m["plain_ms"], None, m["n_bytes"], m["n_flops"],
+           **{k: m[k] for k in SPREAD},
            chain_ms=chain_ms, chain_shape=f"(1, {Fv}, 1)",
            ms_over_chain=m["ms"] / chain_ms,
            rows35={"shape": m35["shape"], "max_abs_err": m35["err"],
-                   "ms": m35["ms"], "ms_over_chain": m35["ms"] / chain_ms,
+                   "ms": m35["ms"], **{k: m35[k] for k in SPREAD},
+                   "ms_over_chain": m35["ms"] / chain_ms,
                    "bound_ms": m35["bound_ms"], "bound_by": m35["bound_by"],
                    "bytes": m35["n_bytes"], "flops": m35["n_flops"]})
     del m, m35, p1, n1
@@ -470,8 +497,8 @@ def kernel_checks(torch, np, timer, peak_flops):
                   f"{len(pads)} pad slot(s) -> ({len(idx_np)}, {Fv}, {K}) "
                   f"complex, W={W}, hpf={hpf}, "
                   f"noise_est_frames={tcfg.noise_est_frames}",
-            ms=timer(lambda: ft_ops.fused_tail_spectrum_cuda(wave, idx, tcfg,
-                                                             hpf)),
+            **timer.kernel(lambda: ft_ops.fused_tail_spectrum_cuda(
+                wave, idx, tcfg, hpf)),
             plain_ms=(timer(lambda: ft_ref.fused_tail_spectrum_ref(
                 wave, idx, tcfg, hpf), reps=3, warmup=1) if time_plain
                 else None),
@@ -496,6 +523,10 @@ def kernel_checks(torch, np, timer, peak_flops):
     v = fused_case(idx16, cfg, False)
     cfg382 = dataclasses.replace(cfg, **W382)
     generic = {"hpf": fused_case(idx16, cfg382, True, time_plain=False),
+               # the noise prologue runs in every bin tile of a row
+               "noise100": fused_case(
+                   idx16, dataclasses.replace(cfg382, noise_est_frames=100),
+                   False, time_plain=False),
                "w200": fused_case(idx16, dataclasses.replace(cfg, **W200),
                                   False, time_plain=False),
                "w200_hpf": fused_case(idx16, dataclasses.replace(cfg, **W200),
@@ -510,17 +541,20 @@ def kernel_checks(torch, np, timer, peak_flops):
     def extra(c):
         return {"rows": c["rows"], "max_abs_err": c["err"],
                 "cleaned_max_abs_err": c["wave_err"], "ms": c["ms"],
+                **{k: c[k] for k in SPREAD},
                 "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "shape": c["shape"]}
 
     record("fused_tail", v["shape"], v["err"], v["ok"], v["ms"],
            v["plain_ms"], None, v["n_bytes"], v["n_flops"],
            cleaned_max_abs_err=v["wave_err"], chain_ms=chain_ms,
+           **{k: v[k] for k in SPREAD},
            ms_over_chain=v["ms"] / chain_ms,
            **{label: extra(c) for label, c in cases.items()})
     record("fused_tail_generic", g["shape"], g["err"], g["ok"], g["ms"],
            g["plain_ms"], None, g["n_bytes"], g["n_flops"],
            cleaned_max_abs_err=g["wave_err"], chain_ms=chain_ms,
+           **{k: g[k] for k in SPREAD},
            ms_over_chain=g["ms"] / chain_ms,
            **{label: extra(c) for label, c in generic.items()})
     return results
@@ -892,7 +926,8 @@ def main_path(torch, np, card):
                       "chunks": int(cpu.det.keep.numel())}), flush=True)
 
     kill_and_resume(torch, np, batches, base)
-    runs["serf_w382_two_phase"] = window382(torch, np, chunks0)
+    runs["serf_w382_two_phase"] = window382(
+        torch, np, batches, cells["serf_two_phase_fused"], card)
     # the in-process cells' buffers go before the workers take the card
     del cells, results, cpu_pre, cpu
     stream8 = batches + [(w, make(w)) for w in range(3, PROC_BATCHES)]
@@ -1968,34 +2003,61 @@ def kill_and_resume(torch, np, batches, base):
     return rec
 
 
-def window382(torch, np, chunks0):
-    """Batch 0 at a 382-sample window (the STFT and fused tail through the
-    direct DFT) through two_phase on the card, with the launch counts set
-    to 0 just before and read just after, held against the port's CPU run
-    of the same batch."""
+def window382(torch, np, batches, base_pre, card):
+    """The 3-batch stream at a 382-sample window (the STFT and fused tail
+    through the direct DFT) through two_phase on the card: warmed up over
+    one batch, driven once with the launch counts set to 0 just before and
+    read just after, its batch 0 held against the port's CPU run of the
+    same batch; then timed as the other cells are, `PASSES` passes in
+    turns with `serf_two_phase_fused` (`base_pre`), whose MB/s is printed
+    beside it."""
     from repro_torch import kernels
     from repro_torch.configs import SERF_AUDIO
     from repro_torch.core.plans import Preprocessor
+    label, base = "serf_w382_two_phase", "serf_two_phase_fused"
     cfg = dataclasses.replace(SERF_AUDIO, **W382)
     pre = Preprocessor(cfg, plan="two_phase")
-    pre(chunks0)                                   # warm-up
+    list(pre.run(batches[:1]))                     # warm-up
     torch.cuda.synchronize()
     kernels.reset_launches()
-    gpu = pre(chunks0)
+    run = list(pre.run(batches))                   # the main-path run
     torch.cuda.synchronize()
     counts = kernels.launches()
+    chunks0 = batches[0][1][0]
     cpu_pre = Preprocessor(cfg, plan="two_phase", device="cpu")
     cpu = cpu_pre(chunks0)
-    diff = against_cpu(torch, np, "serf_w382_two_phase", gpu, cpu,
-                       cpu_pre.graph, chunks0)
-    rec = {"main_path": "serf_w382_two_phase", "window": 382,
-           "launches": counts, "kept": gpu.n_kept,
-           "chunks": int(gpu.det.keep.numel()), "vs_cpu_max_abs_err": diff}
-    print(json.dumps(rec), flush=True)
+    diff = against_cpu(torch, np, label, run[0], cpu, cpu_pre.graph, chunks0)
     for n in ("fir_hpf", "stft_dft_generic", "fused_tail_generic"):
-        check(counts[n] > 0, f"serf_w382_two_phase never launched {n}")
+        check(counts[n] > 0, f"{label} never launched {n}")
     check(counts["stft_dft"] == 0 and counts["fused_tail"] == 0,
-          f"serf_w382_two_phase launched an FFT kernel ({counts})")
+          f"{label} launched an FFT kernel ({counts})")
+    pass_s = {label: [], base: []}
+    cells = [(label, pre), (base, base_pre)]
+    for rep in range(PASSES):
+        for lab, p in (cells if rep % 2 == 0 else cells[::-1]):
+            t0 = time.perf_counter()
+            list(p.run(batches))
+            torch.cuda.synchronize()
+            pass_s[lab].append(time.perf_counter() - t0)
+    src = sum(c.nbytes for _, (c, _) in batches)
+    mb = {lab: sorted(src / 2**20 / t for t in ts)
+          for lab, ts in pass_s.items()}
+    med = {lab: statistics.median(v) for lab, v in mb.items()}
+    rec = {"main_path": label, "window": 382, "launches": counts,
+           "kept": sum(r.n_kept for r in run),
+           "chunks": sum(int(r.det.keep.numel()) for r in run),
+           "vs_cpu_max_abs_err": diff, "passes": PASSES,
+           "pass_s": pass_s[label], "mb_per_s_median": med[label],
+           "mb_per_s_min": mb[label][0], "mb_per_s_max": mb[label][-1],
+           base: {"pass_s": pass_s[base], "mb_per_s_median": med[base],
+                  "mb_per_s_min": mb[base][0],
+                  "mb_per_s_max": mb[base][-1]}}
+    print(f"plan=two_phase cell={label} card={card}  {src / 2**20:.0f} MB "
+          f"source audio per pass, median of {PASSES} passes  ->  "
+          f"{med[label]:.2f} MB/s ({mb[label][0]:.2f}-{mb[label][-1]:.2f}); "
+          f"{base} in turns with it {med[base]:.2f} MB/s "
+          f"({mb[base][0]:.2f}-{mb[base][-1]:.2f})", flush=True)
+    print(json.dumps(rec), flush=True)
     return rec
 
 

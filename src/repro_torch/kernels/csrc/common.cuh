@@ -20,3 +20,13 @@ static cudaError_t allow_shared_bytes(Kernel kernel, size_t bytes) {
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
+
+// Named barriers (bar.sync by the side that waits, bar.arrive by the side
+// that is done); id 0 is __syncthreads.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  __threadfence_block();   // this thread's shared stores before the signal
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}

@@ -44,15 +44,32 @@
 //
 // Every other even window (4 to 510; the reference's Pallas kernel takes
 // up to 382) goes to fused_tail_dft_kernel: the same function through the
-// direct DFT of dft.cuh, the simple version, not warp-specialised. One
-// block of 256 threads per survivor row walks its frames in chunks of
-// DFT_FRAMES: all threads stage the chunk's span (with the high-pass, its
-// T-1 sample halo too) and filter it in shared memory, window the frames,
-// and compute every (frame, bin) of the chunk into shared memory; then one
-// thread per bin carries the recurrence through the chunk with mmse_step,
-// as both other kernels do. Noise frames beyond the first chunk take a
-// prologue pass over the chunks that hold them, which the main loop then
-// computes again.
+// folded 3xTF32 DFT of dft.cuh, tiled by bins. Bins are independent
+// recurrences with independent noise PSDs, so the grid is (bin tile,
+// survivor row) and a block owns DFT_BINS bins of one row from the first
+// frame to the last: 6 x 15 blocks for the 15 real rows at W = 382, where
+// one block a row gave 15. What bounds it: the chain of Fv dependent
+// mmse_step a bin (576 at W = 382); with the high-pass, the FIR too.
+//   - A pad slot writes exact zeros for its bins and exits.
+//   - Producer warps (TAIL_DFT_PRODUCERS threads) stage the basis of the
+//     block's bins once, then walk the row in chunks of TAIL_DFT_FRAMES
+//     frames. A chunk's samples arrive by cp.async as the tile's segments
+//     (dft.cuh), into one of two buffers while the other chunk's tile
+//     runs; with the high-pass they arrive raw, with their Tp-1 sample
+//     halo (more than a hop at W = 200), into a stage buffer, and the FIR
+//     (fir_run, as the FFT kernel's) writes its output as the segments.
+//     Then the warps run the tile for the block's bins into one of two
+//     ring slots.
+//   - One consumer warp, one lane per bin, sums the noise frames' power
+//     (with prologue chunks when min(noise_frames, Fv) exceeds a chunk,
+//     which the main loop then computes again), carries mmse_step through
+//     the chunk and writes re*g, im*g: a warp stores 256 consecutive bytes
+//     a frame.
+//   - The roles hand slots over with the named barriers of the FFT kernel.
+// The cost of the split: each bin tile of a row repeats the row's copies
+// and its FIR (6 times at W = 382: 110,250 x 129 multiply-adds each).
+// Shared memory at W = 382 with the high-pass: 49 KB of basis, 52 KB of
+// segments, 17 KB of ring and 26 KB of stage buffer.
 #include "common.cuh"
 #include "dft.cuh"
 #include "fft.cuh"
@@ -70,13 +87,6 @@ constexpr int BAR_EMPTY = 4;       // + slot: slot read by the consumers
 constexpr int FIR_OUT = 8;         // FIR outputs per thread
 constexpr int FIR_TAPS = 8;        // taps per register window
 
-__device__ __forceinline__ void bar_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int count) {
-  __threadfence_block();   // this thread's shared stores before the signal
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
-}
 
 template <int W>
 struct TailShape {
@@ -90,14 +100,17 @@ struct TailShape {
   }
 };
 
-// span[j] = sum_k taps[k] * xs[j + Tp-1 - k] for s0 + j < S, else 0, with
-// the taps zero-padded to Tp, a multiple of FIR_TAPS; summed in tap order.
-template <int W>
-__device__ __forceinline__ void fir_span(const float* xs, const float* taps,
-                                         int Tp, long long S, long long s0,
-                                         float* span, int t) {
-  using Sh = FftShape<W>;
-  for (int it = t; it < Sh::SPAN / FIR_OUT; it += PRODUCERS) {
+// store(j, sum_k taps[k] * xs[j + Tp-1 - k]) for s0 + j < S, else
+// store(j, 0), for j below len rounded up to FIR_OUT, by P threads (thread
+// t), with the taps zero-padded to Tp, a multiple of FIR_TAPS; summed in
+// tap order. xs and taps 16-byte aligned; xs holds len + Tp - 1 samples
+// and is read up to FIR_OUT + 1 floats beyond, which reach only the
+// outputs from len on.
+template <int P, typename Store>
+__device__ __forceinline__ void fir_run(const float* xs, const float* taps,
+                                        int Tp, long long S, long long s0,
+                                        int len, int t, Store store) {
+  for (int it = t; it < (len + FIR_OUT - 1) / FIR_OUT; it += P) {
     const int j0 = it * FIR_OUT;
     float acc[FIR_OUT];
 #pragma unroll
@@ -128,8 +141,17 @@ __device__ __forceinline__ void fir_span(const float* xs, const float* taps,
     }
 #pragma unroll
     for (int m = 0; m < FIR_OUT; ++m)
-      span[j0 + m] = (s0 + j0 + m < S) ? acc[m] : 0.f;
+      store(j0 + m, (s0 + j0 + m < S) ? acc[m] : 0.f);
   }
+}
+
+// The FFT kernel's FIR over one chunk's span.
+template <int W>
+__device__ __forceinline__ void fir_span(const float* xs, const float* taps,
+                                         int Tp, long long S, long long s0,
+                                         float* span, int t) {
+  fir_run<PRODUCERS>(xs, taps, Tp, S, s0, FftShape<W>::SPAN, t,
+                     [&](int j, float v) { span[j] = v; });
 }
 
 template <int W>
@@ -245,17 +267,26 @@ fused_tail_kernel(const float* __restrict__ wave, const int* __restrict__ idx,
   }
 }
 
-constexpr int TAIL_DFT_THREADS = 256;   // at least K = W/2 + 1 <= 256
+constexpr int TAIL_DFT_FRAMES = 32;       // frames a chunk
+constexpr int TAIL_DFT_PRODUCERS = 128;   // 4 warps: 32 frames x 32 bins
+constexpr int TAIL_DFT_THREADS = TAIL_DFT_PRODUCERS + 32;   // + consumers
+constexpr int TAIL_RING_ROW = DFT_BINS + 1;   // float2 a frame in a slot
 
-// Shared memory, in floats, of fused_tail_dft_kernel at window W with T
-// taps (0: no high-pass).
-__host__ __device__ constexpr int tail_dft_span(int W) {
-  return (DFT_FRAMES - 1) * (W / 2) + W;
+// Floats of the high-pass's stage buffer: the longest span with its halo,
+// rounded up to FIR_OUT, plus the floats fir_run reads beyond it.
+__host__ __device__ constexpr int tail_dft_stage(int W, int Tp) {
+  return ((TAIL_DFT_FRAMES - 1) * (W / 2) + W + FIR_OUT - 1) / FIR_OUT *
+             FIR_OUT + Tp + FIR_OUT;
 }
-static size_t tail_dft_floats(int W, int T) {
-  const int K = W / 2 + 1;
-  return 3 * W + 2 * DFT_FRAMES * K + DFT_FRAMES * dft_stride(W) +
-         tail_dft_span(W) + (T > 0 ? T - 1 + tail_dft_span(W) : 0) + T;
+// Shared memory, in floats, of fused_tail_dft_kernel at window W with Tp
+// (padded) taps, 0 for no high-pass: basis tile, the fold's coefficients,
+// taps, two ring slots, two chunks' segments and, with the high-pass, the
+// stage buffer of raw samples.
+__host__ __device__ constexpr int tail_dft_floats(int W, int Tp) {
+  return dft_basis_floats(W) + dft_coef_floats(W) + Tp +
+         4 * TAIL_DFT_FRAMES * TAIL_RING_ROW +
+         2 * dft_span_floats(W, TAIL_DFT_FRAMES) +
+         (Tp > 0 ? tail_dft_stage(W, Tp) : 0);
 }
 
 __global__ void __launch_bounds__(TAIL_DFT_THREADS)
@@ -264,88 +295,130 @@ fused_tail_dft_kernel(const float* __restrict__ wave,
                       const float* __restrict__ tables,
                       const float* __restrict__ taps,
                       float* __restrict__ out, int B, long long S, int Fv,
-                      int W, int T, int noise_frames, float alpha,
+                      int W, int T, int Tp, int noise_frames, float alpha,
                       float gain_floor) {
+  constexpr int FM = TAIL_DFT_FRAMES, P = TAIL_DFT_PRODUCERS;
+  constexpr int ALL = TAIL_DFT_THREADS;
   extern __shared__ float4 smem4[];
-  const int K = W / 2 + 1, hop = W / 2;
-  const int halo = T > 0 ? T - 1 : 0;
-  float* tab_s = reinterpret_cast<float*>(smem4);
-  const float2* tw = reinterpret_cast<const float2*>(tab_s);
-  const float* win = tab_s + 2 * W;
-  // 3W floats before it: even, so 8-byte aligned
-  float2* spec = reinterpret_cast<float2*>(tab_s + 3 * W);
-  float* xw = reinterpret_cast<float*>(spec + DFT_FRAMES * K);
-  float* raw = xw + DFT_FRAMES * dft_stride(W);   // span + halo
-  float* filt = raw + tail_dft_span(W) + halo;    // T > 0 only
-  float* taps_s = filt + (T > 0 ? tail_dft_span(W) : 0);
+  const int K = W / 2 + 1, hop = W / 2, R = dft_row(W), SP = dft_seg(W);
+  const int halo = T > 0 ? Tp - 1 : 0;
+  float* basis_s = reinterpret_cast<float*>(smem4);
+  float* coef = basis_s + dft_basis_floats(W);
+  float* taps_s = coef + dft_coef_floats(W);
+  float2* ring = reinterpret_cast<float2*>(taps_s + Tp);
+  float* segs = reinterpret_cast<float*>(ring + 2 * FM * TAIL_RING_ROW);
+  float* stage = segs + 2 * dft_span_floats(W, FM);     // T > 0 only
 
   const int t = threadIdx.x;
-  const int src = idx[blockIdx.x];
+  const int b0 = blockIdx.x * DFT_BINS;
+  const int src = idx[blockIdx.y];
   float2* out_r = reinterpret_cast<float2*>(out) +
-                  static_cast<long long>(blockIdx.x) * Fv * K;
+                  static_cast<long long>(blockIdx.y) * Fv * K + b0;
   if (src < 0 || src >= B) {  // pad slot: exact zeros, like a fill gather
-    for (long long i = t; i < static_cast<long long>(Fv) * K;
-         i += TAIL_DFT_THREADS)
-      out_r[i] = make_float2(0.f, 0.f);
+    for (long long i = t; i < static_cast<long long>(Fv) * DFT_BINS;
+         i += ALL) {
+      const int f = static_cast<int>(i / DFT_BINS), n = i % DFT_BINS;
+      if (b0 + n < K)
+        out_r[static_cast<long long>(f) * K + n] = make_float2(0.f, 0.f);
+    }
     return;
   }
-  for (int i = t; i < 3 * W; i += TAIL_DFT_THREADS) tab_s[i] = tables[i];
-  for (int k = t; k < T; k += TAIL_DFT_THREADS) taps_s[k] = taps[k];
 
-  const float* xr = wave + static_cast<long long>(src) * S;
   const int nf = min(noise_frames, Fv);
-  const int n_pre =
-      nf > DFT_FRAMES ? (nf + DFT_FRAMES - 1) / DFT_FRAMES : 0;
-  const int n_chunks = n_pre + (Fv + DFT_FRAMES - 1) / DFT_FRAMES;
-  float sum = 0.f, inv_lam = 0.f;
-  MmseCarry a2 = mmse_carry_init(alpha);
-  for (int c = 0; c < n_chunks; ++c) {
-    const int f0 = (c < n_pre ? c : c - n_pre) * DFT_FRAMES;
-    const int n_f = min(DFT_FRAMES, Fv - f0);
-    const int len = (n_f - 1) * hop + W;
-    const long long s0 = static_cast<long long>(f0) * hop - halo;
-    __syncthreads();   // the last chunk's spectrum is consumed
-    for (int j = t; j < len + halo; j += TAIL_DFT_THREADS) {
-      const long long q = s0 + j;
-      raw[j] = q >= 0 && q < S ? xr[q] : 0.f;
-    }
-    __syncthreads();
-    const float* frames = raw;
-    if (T > 0) {  // causal high-pass: filt[j] = sum_k taps[k] raw[j+T-1-k]
-      for (int j = t; j < len; j += TAIL_DFT_THREADS) {
-        float acc = 0.f;
-        for (int k = 0; k < T; ++k)
-          acc = fmaf(taps_s[k], raw[j + halo - k], acc);
-        filt[j] = acc;
+  const int n_pre = nf > FM ? (nf + FM - 1) / FM : 0;
+  const int n_chunks = n_pre + (Fv + FM - 1) / FM;
+  const auto chunk_f0 = [&](int c) {
+    return (c < n_pre ? c : c - n_pre) * FM;
+  };
+
+  if (t < P) {
+    // ------------------------------------------------------------ producers
+    const float* xr = wave + static_cast<long long>(src) * S;
+    const auto psync = [] { bar_sync(BAR_PRODUCERS, P); };
+    // chunk c's samples: as segments into its buffer, or with the
+    // high-pass raw (with the halo) into the stage buffer
+    const auto copy_chunk = [&](int c) {
+      const int f0 = chunk_f0(c), n_f = min(FM, Fv - f0);
+      const long long s0 = static_cast<long long>(f0) * hop;
+      if (T > 0)
+        copy_span_async<P>(xr, S, s0 - halo, (n_f - 1) * hop + W + halo,
+                           stage, t);
+      else
+        dft_copy_segments<P>(xr, S, s0, n_f + 1, W,
+                             segs + (c & 1) * dft_span_floats(W, FM), t);
+    };
+    // zeros where no copy or FIR writes (segment pads, rows past the last
+    // frame, the stage's tail): what the tile and the FIR read is finite
+    const int zeros = 2 * dft_span_floats(W, FM) +
+                      (T > 0 ? tail_dft_stage(W, Tp) : 0);
+    for (int i = t; i < zeros; i += P) segs[i] = 0.f;
+    psync();
+    dft_load_basis<P>(tables, W, b0, basis_s, t);
+    copy_chunk(0);                       // one commit group with the basis
+    dft_load_coef<P>(tables, W, coef, t);
+    for (int k = t; k < Tp; k += P) taps_s[k] = k < T ? taps[k] : 0.f;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int f0 = chunk_f0(c), n_f = min(FM, Fv - f0);
+      float* seg = segs + (c & 1) * dft_span_floats(W, FM);
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+      psync();                  // chunk c is in; chunk c-1's tile is done
+      if (T > 0) {
+        const int len = (n_f - 1) * hop + W;
+        fir_run<P>(stage, taps_s, Tp, S, static_cast<long long>(f0) * hop,
+                   len, t, [&](int j, float v) {
+                     if (j >= len) return;
+                     const int q = j / hop, i = j - q * hop;
+                     seg[q * SP + i] = v;       // and the one it opens:
+                     if (i == 0 && q > 0) seg[q * SP - SP + hop] = v;
+                   });
+        psync();
       }
-      __syncthreads();
-      frames = filt;
+      if (c + 1 < n_chunks) copy_chunk(c + 1);
+      const int slot = c & 1;
+      if (c >= 2) bar_sync(BAR_EMPTY + slot, ALL);   // chunk c-2 consumed
+      float2* Z = ring + slot * FM * TAIL_RING_ROW;
+      // 16 frames x 16 bins a warp
+      const int item = t >> 5;
+      dft_warp_tile<1, 2, 2>(seg, coef, basis_s, basis_s + DFT_BINS * R, W,
+                             16 * (item >> 1), 16 * (item & 1), t & 31,
+                             [&](int f, int n, float re, float im) {
+                               Z[f * TAIL_RING_ROW + n] = make_float2(re, im);
+                             });
+      bar_arrive(BAR_FULL + slot, ALL);
     }
-    dft_stage_frames<TAIL_DFT_THREADS>(frames, win, xw, n_f, W, hop, t);
-    __syncthreads();
-    const int lane = t & 31;
-    if (lane < n_f)
-      for (int k = t >> 5; k < K; k += TAIL_DFT_THREADS / 32)
-        spec[lane * K + k] = dft_bin(xw + lane * dft_stride(W), tw, W, k);
-    __syncthreads();
-    if (t >= K) continue;
-    if (c < n_pre || (n_pre == 0 && c == 0)) {   // noise frames
-      const int n_noise = min(n_f, nf - f0);
-      for (int f = 0; f < n_noise; ++f) {
-        const float2 v = spec[f * K + t];
-        sum += v.x * v.x + v.y * v.y;
+  } else {
+    // ------------------------------------------------------------ consumers
+    const int lane = t - P;              // bin b0 + lane, if below K
+    const bool owns_bin = b0 + lane < K;
+    float sum = 0.f, inv_lam = 0.f;
+    MmseCarry a2 = mmse_carry_init(alpha);
+    for (int c = 0; c < n_chunks; ++c) {
+      const int slot = c & 1;
+      const int f0 = chunk_f0(c), n_f = min(FM, Fv - f0);
+      bar_sync(BAR_FULL + slot, ALL);
+      const float2* Z = ring + slot * FM * TAIL_RING_ROW + lane;
+      if (owns_bin) {
+        if (c < n_pre || (n_pre == 0 && c == 0)) {   // noise frames
+          const int n_noise = min(n_f, nf - f0);
+          for (int f = 0; f < n_noise; ++f) {
+            const float2 v = Z[f * TAIL_RING_ROW];
+            sum += v.x * v.x + v.y * v.y;
+          }
+          if (c == max(n_pre - 1, 0)) inv_lam = 1.f / fmaxf(sum / nf, 1e-10f);
+        }
+        if (c >= n_pre) {
+          float2* o = out_r + static_cast<long long>(f0) * K + lane;
+#pragma unroll 4
+          for (int f = 0; f < n_f; ++f) {
+            const float2 v = Z[f * TAIL_RING_ROW];
+            const float g = fmaxf(
+                mmse_step(v.x * v.x + v.y * v.y, inv_lam, alpha, a2),
+                gain_floor);
+            o[static_cast<long long>(f) * K] = make_float2(v.x * g, v.y * g);
+          }
+        }
       }
-      if (c == max(n_pre - 1, 0)) inv_lam = 1.f / fmaxf(sum / nf, 1e-10f);
-    }
-    if (c >= n_pre) {
-      float2* o = out_r + static_cast<long long>(f0) * K + t;
-      for (int f = 0; f < n_f; ++f) {
-        const float2 v = spec[f * K + t];
-        const float g = fmaxf(
-            mmse_step(v.x * v.x + v.y * v.y, inv_lam, alpha, a2),
-            gain_floor);
-        o[static_cast<long long>(f) * K] = make_float2(v.x * g, v.y * g);
-      }
+      if (c + 2 < n_chunks) bar_arrive(BAR_EMPTY + slot, ALL);
     }
   }
 }
@@ -357,11 +430,14 @@ static int launch_fused_tail_dft(const float* wave, const int* idx,
                                  float alpha, float gain_floor,
                                  cudaStream_t stream) {
   if (W < 4 || W > 510 || W % 2) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * tail_dft_floats(W, T);
+  const int Tp = T > 0 ? (T + FIR_TAPS - 1) / FIR_TAPS * FIR_TAPS : 0;
+  const size_t smem = sizeof(float) * tail_dft_floats(W, Tp);
   cudaError_t err = allow_shared_bytes(fused_tail_dft_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_tail_dft_kernel<<<R, TAIL_DFT_THREADS, smem, stream>>>(
-      wave, idx, tables, taps, out, B, S, Fv, W, T, noise_frames, alpha,
+  const dim3 grid(static_cast<unsigned>((W / 2 + DFT_BINS) / DFT_BINS),
+                  static_cast<unsigned>(R));
+  fused_tail_dft_kernel<<<grid, TAIL_DFT_THREADS, smem, stream>>>(
+      wave, idx, tables, taps, out, B, S, Fv, W, T, Tp, noise_frames, alpha,
       gain_floor);
   return static_cast<int>(cudaGetLastError());
 }
@@ -386,11 +462,12 @@ static int launch_fused_tail(const float* wave, const int* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// wave: (B, S) f32; idx: (R,) int32; tables: fft_tables.tables(window);
-// taps: (T,) f32, or null with T = 0 for no high-pass; out: (R, Fv, K, 2)
-// f32, K = window/2 + 1. Contiguous, on the current device; hop = window/2,
-// window even, 4 to 512 (128, 256 and 512 by the FFT, the others by the
-// DFT), noise_frames >= 1. Returns a cudaError_t code.
+// wave: (B, S) f32; idx: (R,) int32; tables:
+// fft_tables.kernel_tables(window); taps: (T,) f32, or null with T = 0 for
+// no high-pass; out: (R, Fv, K, 2) f32, K = window/2 + 1. Contiguous, on
+// the current device; hop = window/2, window even, 4 to 512 (128, 256 and
+// 512 by the FFT, the others by the DFT), noise_frames >= 1. Returns a
+// cudaError_t code.
 extern "C" int fused_tail_forward(const float* wave, const int* idx,
                                   const float* tables, const float* taps,
                                   float* out, int B, long long S, int R,

@@ -5,8 +5,8 @@
 (gather + optional high-pass + STFT + noise PSD + MMSE gain in one pass).
 It takes the STFT kernel's framing (`fft_tables.check_geometry`): windows
 of 128, 256 and 512 run the warp-specialised FFT kernel (`KERNEL`), the
-other even windows up to 510 the direct-DFT kernel (`DFT_KERNEL`), one
-entry point with two launch counts. `finish` is the irfft overlap-add
+other even windows up to 510 the direct-DFT kernel tiled by bins
+(`DFT_KERNEL`), one entry point with two launch counts. `finish` is the irfft overlap-add
 outside the kernel, as in the reference.
 """
 from __future__ import annotations

@@ -6,7 +6,8 @@ reads overlapping frames straight from the row, so it needs no padding;
 it takes hop = window/2 with an even window of 4 to 512 samples
 (`fft_tables.check_geometry`) and raises `ValueError` on anything else.
 Windows of 128, 256 and 512 run the FFT (`KERNEL`), the others the direct
-DFT (`DFT_KERNEL`): one entry point, two launch counts.
+DFT on the tensor cores (`DFT_KERNEL`): one entry point, two launch
+counts.
 """
 from __future__ import annotations
 
@@ -27,9 +28,9 @@ DFT_KERNEL = CudaKernel("stft", "stft_forward", _ARGTYPES)
 
 @functools.lru_cache(maxsize=16)
 def tables_on(device, window):
-    """The kernels' twiddle and window table (`fft_tables.tables`) on
-    `device`."""
-    return torch.as_tensor(FT.tables(window), device=device)
+    """The kernels' table at `window` (`fft_tables.kernel_tables`: the FFT's
+    twiddles and window, or the DFT's basis and window) on `device`."""
+    return torch.as_tensor(FT.kernel_tables(window), device=device)
 
 
 def stft_cuda(x, window=256, hop=128):
@@ -46,7 +47,8 @@ def stft_cuda(x, window=256, hop=128):
         raise ValueError(f"stft_cuda: unsupported B={B}, S={S}")
     out = torch.empty((B, F, K, 2), dtype=torch.float32, device=dev)
     kernel = KERNEL if FT.uses_fft(window) else DFT_KERNEL
-    # rows go on the grid's y axis: one launch per block of MAX_GRID_Y rows
+    # the FFT kernel's rows go on the grid's y axis: one launch per block of
+    # MAX_GRID_Y rows
     for r0 in range(0, B, MAX_GRID_Y):
         kernel(dev, x[r0].data_ptr(), tables.data_ptr(), out[r0].data_ptr(),
                min(MAX_GRID_Y, B - r0), S, F, window)

@@ -155,12 +155,13 @@ def test_fused_tail_kernel_one_row_and_all_pads(card, idx):
     _close(got, TR.fused_tail_spectrum_ref(wave, idx, cfg), 2e-4, 2e-4)
 
 
-@pytest.mark.parametrize("window", [64, 200, 382])
-@pytest.mark.parametrize("B,F", [(1, 31), (3, 33), (2, 70)])
+@pytest.mark.parametrize("window", [4, 64, 200, 382, 510])
+@pytest.mark.parametrize("B,F", [(1, 31), (3, 33), (2, 70), (2, 130)])
 def test_stft_dft_kernel(card, window, B, F):
-    """The direct-DFT path of the STFT kernel: frame counts one below and
-    one above a 32-frame tile and a part tile, with a part frame left
-    over; it counts on `stft_dft_generic`, not `stft_dft`."""
+    """The direct-DFT path of the STFT kernel: frame counts below and
+    above a 32-frame tile (W = 510) and a 64-frame one, and tiles that a
+    block walks in turn, with a part frame left over; it counts on
+    `stft_dft_generic`, not `stft_dft`."""
     hop = window // 2
     S = (F - 1) * hop + window + hop // 2
     x = torch.randn(B, S, device=card) * 0.3
@@ -172,7 +173,7 @@ def test_stft_dft_kernel(card, window, B, F):
     assert kernels.launches()["stft_dft"] == 0
 
 
-@pytest.mark.parametrize("window", [64, 200, 382])
+@pytest.mark.parametrize("window", [4, 64, 200, 382, 510])
 @pytest.mark.parametrize("hpf", [False, True])
 @pytest.mark.parametrize("noise_frames", [16, 100])
 def test_fused_tail_dft_kernel(card, window, hpf, noise_frames):

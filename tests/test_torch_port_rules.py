@@ -21,7 +21,8 @@ from repro_torch.data.loader import audio_batch_maker
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "fir_variants.py",
-    ROOT / "scripts" / "mmse_variants.py"]
+    ROOT / "scripts" / "mmse_variants.py",
+    ROOT / "scripts" / "dft_variants.py"]
 
 
 def _imported_roots(path):
