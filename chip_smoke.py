@@ -100,7 +100,25 @@ outside a checkout of the repo. Phases, any failure exits non-zero:
      worker must win a duplicate lease and the stopped one be recorded
      `"speculated"` in the telemetry; the same without speculation; both
      walls and end-of-stream tails printed.
-  6. one JSON line with every kernel's numbers (its launches summed over
+  6. lm_serve, language-model serving (no hand kernel on its path; the
+     launch counts must stay 0): the eight attention-family archs at
+     `reduced` widths and f32, parameters drawn on the CPU and copied to
+     the card, loss, prefill logits and one decode step's logits against
+     the port's CPU run within rtol = atol = 1e-4; llama3.2-3b at full
+     width and f32, decoding token 127 against the prefill cache of 127
+     tokens against prefill of all 128 (B = 2) within 5e-3; then
+     llama3.2-3b in bf16: `launch.serve`'s LM mode in process (8
+     requests, batch 4, prompt 128, 32 tokens), and a RequestQueue over
+     one engine twice on the same 8 prompts (the same tokens both times,
+     each below the vocab size, each request answered once). Printed
+     beside the card's line: parameters, peak memory, prefill ms (B = 4,
+     S = 128) and decode ms a step (CUDA events, median of 10), generated
+     tokens a second, the least times (`decode_bound_ms`,
+     `prefill_bound_ms`), the Python threads alive when the phase began,
+     the decode step timed and traced in a fresh process
+     (`scripts/lm_profile.py`: device-busy share, kernels a step) and the
+     phase's wall.
+  7. one JSON line with every kernel's numbers (its launches summed over
      the main-path runs, the workers' included), the whole run's wall,
      then the card's line and the result line `{"ok": true, "device":
      {...}}` last.
@@ -528,7 +546,7 @@ def kernel_checks(torch, np, timer, peak_flops):
                    idx16, dataclasses.replace(cfg382, noise_est_frames=100),
                    False, time_plain=False),
                "w200": fused_case(idx16, dataclasses.replace(cfg, **W200),
-                                  False, time_plain=False),
+                                  False),
                "w200_hpf": fused_case(idx16, dataclasses.replace(cfg, **W200),
                                       True, time_plain=False)}
     g = fused_case(idx16, cfg382, False)
@@ -2061,6 +2079,205 @@ def window382(torch, np, batches, base_pre, card):
     return rec
 
 
+# ------------------------------------------------------- the LM serving phase
+
+LM_ARCH = "llama3.2-3b"         # the full-width arch: 3.21 B parameters
+LM_TOL = {"card_vs_cpu": 1e-4, "decode_vs_prefill": 5e-3}   # rtol = atol
+BF16_PEAK_FLOPS = 989e12        # H100 SXM dense bf16 (NVIDIA data sheet)
+
+
+def lm_inputs(np, cfg, B, S, seed=1):
+    rng = np.random.RandomState(seed)
+    tokens = rng.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    batch = {"tokens": tokens, "targets": tokens}
+    if cfg.num_prefix_tokens:
+        batch["prefix"] = rng.randn(B, cfg.num_prefix_tokens,
+                                    cfg.d_model).astype(np.float32)
+    if cfg.is_enc_dec:
+        batch["enc_frames"] = rng.randn(B, 16, cfg.d_model).astype(
+            np.float32)
+    return batch
+
+
+def prefill_then_step(torch, model, batch, cache_dtype):
+    """prefill(tokens[:, :k]) into caches of S (+ prefix) rows, then one
+    decode step on token k = S - 1: (loss, prefill logits, step logits,
+    prefill(tokens) logits)."""
+    cfg = model.cfg
+    B, S = batch["tokens"].shape
+    k, P = S - 1, cfg.num_prefix_tokens or 0
+    kw = {"enc_len": batch["enc_frames"].shape[1]} if cfg.is_enc_dec else {}
+    with torch.inference_mode():
+        loss, _ = model.loss_fn(batch)
+        logits, pf = model.prefill(dict(batch, tokens=batch["tokens"][:, :k]))
+        cache = model.init_cache(B, S + P, dtype=cache_dtype, **kw)
+        for name, v in pf.items():
+            cache[name][:, :, :v.shape[2]].copy_(v)
+        step, _ = model.decode_step(cache, torch.as_tensor(
+            batch["tokens"][:, k], device=model.device), P + k)
+        full, _ = model.prefill(batch)
+    return loss, logits, step, full
+
+
+def lm_reduced_archs(torch, np):
+    """The attention-family archs at `reduced` widths, f32: parameters drawn
+    once on the CPU and copied to the card; loss, prefill logits and one
+    decode step's logits on the card against the port's CPU run."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models.zoo import build_model
+    errs = {}
+    for arch in sorted(a for a, c in ARCHS.items()
+                       if c.family in ("dense", "moe", "vlm", "audio")):
+        cfg = dataclasses.replace(reduced(ARCHS[arch]), dtype="float32")
+        cpu = build_model(cfg, device="cpu")
+        gpu = build_model(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        check(gpu.emb["tok"].device.type == "cuda", "model not on the card")
+        batch = lm_inputs(np, cfg, 2, 32)
+        want = prefill_then_step(torch, cpu, batch, torch.float32)[:3]
+        got = prefill_then_step(torch, gpu, batch, torch.float32)[:3]
+        tol = LM_TOL["card_vs_cpu"]
+        errs[arch] = {}
+        for what, g, w in zip(("loss", "prefill", "decode"), got, want):
+            err, ok = compare(torch, g.cpu(), w, tol, tol)
+            check(ok, f"{arch} {what}: card against CPU max abs err {err}")
+            errs[arch][what] = err
+    return errs
+
+
+def lm_full_width_f32(torch, np):
+    """llama3.2-3b at f32 on the card: decoding token k against the prefill
+    cache of tokens[:k] reproduces prefill(tokens[:k+1])'s next-token
+    logits (B = 2, a 128-token prompt, the cache f32)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.zoo import build_model
+    cfg = dataclasses.replace(ARCHS[LM_ARCH], dtype="float32")
+    model = build_model(cfg)
+    batch = lm_inputs(np, cfg, 2, 128)
+    _, _, step, full = prefill_then_step(torch, model, batch, torch.float32)
+    tol = LM_TOL["decode_vs_prefill"]
+    err, ok = compare(torch, step, full, tol, tol)
+    check(ok, f"{LM_ARCH} f32: decode against prefill max abs err {err}")
+    rec = {"max_abs_err": err, "tol": tol, "max_abs_logit":
+           float(full.abs().max()), "params": sum(
+               p.numel() for p in model.parameters())}
+    del model, step, full
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_serving(torch, np, timer):
+    """llama3.2-3b in bf16: the launcher's LM mode in process, then a
+    RequestQueue over one engine twice on the same 8 prompts (the same
+    tokens both times, every token below the vocab size, every request
+    answered once), prefill and decode-step times and the peak memory."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import RequestQueue, ServeEngine
+    B, S, GEN, N = 4, 128, 32, 8
+    done = serve.main(["--arch", LM_ARCH, "--batch", str(B), "--prompt-len",
+                       str(S), "--gen", str(GEN), "--requests", str(N)])
+    check(sorted(done) == list(range(N)), f"launcher served {done}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ARCHS[LM_ARCH]
+    model = build_model(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    engine = ServeEngine(model, max_seq=S + GEN + 8)
+    prompts = np.random.RandomState(7).randint(0, cfg.vocab_size, (N, S))
+    runs = []
+    for _ in range(2):
+        q = RequestQueue(engine, B, S, GEN)
+        rids = [q.submit(p) for p in prompts]
+        t0 = time.perf_counter()
+        answered = []
+        while len(answered) < N:
+            answered.extend(q.pump())
+        wall = time.perf_counter() - t0
+        check(sorted(answered) == rids and len(set(answered)) == N,
+              f"requests answered {answered}, submitted {rids}")
+        out = {r: q.result(r) for r in rids}
+        check(all(q.result(r) is None for r in rids),
+              "a result was handed over twice")
+        toks = np.stack([out[r] for r in rids])
+        check(toks.shape == (N, GEN) and (toks >= 0).all()
+              and (toks < cfg.vocab_size).all(), "tokens out of range")
+        runs.append((toks, wall))
+    check(np.array_equal(runs[0][0], runs[1][0]),
+          "two runs on the same prompts gave different tokens")
+
+    # prefill (B, S) and one decode step, CUDA events, median of 10
+    batch = {"tokens": prompts[:B]}
+    with torch.inference_mode():
+        prefill_ms = timer(lambda: model.prefill(batch), reps=10)
+        logits, pf = model.prefill(batch)
+        caches = model.init_cache(B, S + GEN)
+        for name, v in pf.items():
+            caches[name][:, :, :S].copy_(v)
+        tok = logits[:, :cfg.vocab_size].argmax(-1)
+        decode_ms = timer(lambda: model.decode_step(caches, tok, S), reps=10)
+    kv_bytes = (2 * cfg.num_layers * B * (S + GEN) * cfg.kv_dim
+                * caches["k"].element_size())
+    rec = {"arch": LM_ARCH, "dtype": cfg.dtype, "params": n_params,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "batch": B, "prompt_len": S, "gen": GEN, "requests": N,
+           "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+           "generated_tok_per_s": [N * GEN / w for _, w in runs],
+           "queue_wall_s": [w for _, w in runs],
+           # least times: the weights (and the KV cache) read once a step;
+           # prefill's 2 * params * B * S operations at the bf16 peak
+           "decode_bound_ms": (param_bytes + kv_bytes)
+           / HBM_BYTES_PER_S * 1e3,
+           "prefill_bound_ms": max(param_bytes / HBM_BYTES_PER_S,
+                                   2 * n_params * B * S / BF16_PEAK_FLOPS)
+           * 1e3}
+    del engine, model, caches, pf, logits
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_serve(torch, np, timer, card):
+    """Phase 6: language-model serving on the card (no hand kernel runs on
+    this path: the counts must stay 0)."""
+    import threading
+
+    from repro_torch import kernels
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    # the decode loop is host-bound: other Python threads left by earlier
+    # phases share its interpreter lock
+    rec = {"python_threads": sorted(
+        t.name for t in threading.enumerate()
+        if t is not threading.main_thread())}
+    rec["reduced_card_vs_cpu"] = lm_reduced_archs(torch, np)
+    print(json.dumps({"lm_reduced_card_vs_cpu": rec["reduced_card_vs_cpu"]}),
+          flush=True)
+    rec["full_width_f32_decode_vs_prefill"] = lm_full_width_f32(torch, np)
+    rec["bf16_serving"] = lm_serving(torch, np, timer)
+    # the same decode step in a fresh process, traced: the device-busy
+    # share and kernels a step (scripts/lm_profile.py)
+    out = subprocess.run([sys.executable, str(ROOT / "scripts" /
+                                              "lm_profile.py")],
+                         capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"lm_profile.py failed: {out.stderr[-2000:]}")
+    prof = json.loads(out.stdout.strip().splitlines()[-1])
+    rec["fresh_process_decode"] = {k: prof[k] for k in (
+        "decode_ms_per_step", "traced_wall_ms_per_step",
+        "device_busy_ms_per_step", "device_busy_share", "kernels_per_step")}
+    launched = kernels.launches()
+    check(not any(launched.values()),
+          f"a hand kernel launched on the LM path: {launched}")
+    rec["hand_kernel_launches"] = launched
+    rec["wall_s"] = time.perf_counter() - t0
+    print(card, flush=True)
+    print(json.dumps({"lm_serve": rec}), flush=True)
+    return rec
+
+
 # ------------------------------------------------------------------- main
 
 def main():
@@ -2105,6 +2322,7 @@ def main():
         timer = Timer(torch)
         results = kernel_checks(torch, np, timer, peak_flops)
         runs = main_path(torch, np, card_line)
+        lm_serve(torch, np, timer, card_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -1,7 +1,18 @@
-"""Serving entry point: audio preprocessing behind the serving tier, on
-the CUDA card by default (the port's copy of the reference's
-`launch/serve.py`, audio mode).
+"""Serving driver, on the CUDA card by default (the port's copy of the
+reference's `launch/serve.py`), two modes:
 
+Language-model decoding (the model-zoo twin), the default:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
+      --batch 4 --prompt-len 128 --gen 32 --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+
+It builds the arch (`--reduced`: the family-preserving small config) with
+parameters drawn from `--seed`, serves `--requests` random prompts through
+a `RequestQueue` over a `ServeEngine` in batches of `--batch`, and prints
+the tokens served a second and the first request's tokens. The attention
+families are ported; the recurrent ones (zamba2, xlstm) raise.
+
+Audio preprocessing behind the serving tier (`--audio`):
   PYTHONPATH=src python -m repro_torch.launch.serve --audio \
       --pool-workers 2 --pool-transport proc --clients 4 --requests 12 \
       --max-batch 4 --linger-ms 20
@@ -16,12 +27,10 @@ synthetic stream, and reports the requests served, p50/p99 latency, batch
 occupancy and the per-worker ledger. `--trace FILE` writes a Chrome trace
 of the run (requests as async spans, the workers' spans parented under
 the run span) and `--telemetry DIR` one durable record per accepted
-batch; either adds the `metrics:` summary lines. `--device cpu` runs the
-workers on the plain PyTorch versions; without a card and without it,
-the run fails.
+batch; either adds the `metrics:` summary lines (audio mode only).
 
-The reference's other mode, language-model decoding (`--arch ...`), is
-not ported: without `--audio` this entry point exits with an error.
+`--device cpu` runs on the CPU (the plain PyTorch versions); without a
+card and without it, either mode fails.
 """
 from __future__ import annotations
 
@@ -30,6 +39,41 @@ import threading
 import time
 
 import numpy as np
+
+
+def _lm_main(args):
+    import torch
+
+    from repro_torch.configs import get_config, reduced as reduce_cfg
+    from repro_torch.device import resolve_device
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import RequestQueue, ServeEngine
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduce_cfg(cfg)
+    model = build_model(cfg, device=device,
+                        generator=torch.Generator(device).manual_seed(
+                            args.seed))
+    engine = ServeEngine(model, max_seq=args.prompt_len + args.gen + 8,
+                         device=device)
+    q = RequestQueue(engine, args.batch, args.prompt_len, args.gen)
+
+    rng = np.random.RandomState(args.seed)
+    rids = [q.submit(rng.randint(0, cfg.vocab_size, size=args.prompt_len))
+            for _ in range(args.requests)]
+    t0 = time.time()
+    done = []
+    while len(done) < len(rids):
+        done.extend(q.pump())
+    dt = time.time() - t0
+    n_tok = len(rids) * args.gen
+    print(f"served {len(rids)} requests, {n_tok} tokens in {dt:.2f}s "
+          f"({n_tok / dt:.1f} tok/s) on {device.type}")
+    sample = q.result(rids[0])
+    print("sample output tokens:", sample[:16].tolist())
+    return done
 
 
 def _audio_main(args):
@@ -114,13 +158,21 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--audio", action="store_true",
                     help="serve audio preprocessing through the worker "
-                         "pool and the continuous batcher (required: the "
-                         "language-model mode is not ported)")
+                         "pool and the continuous batcher (default: "
+                         "language-model decoding)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (the default; fails without a card) or cpu")
+    # language-model mode
+    ap.add_argument("--arch", default="gemma-7b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--requests", type=int, default=8,
-                    help="requests per client")
+                    help="requests in all (language model) / per client "
+                         "(audio)")
+    # audio serving mode
     ap.add_argument("--pool-workers", type=int, default=2)
     ap.add_argument("--pool-min-workers", type=int, default=None,
                     help="autoscale floor (default: --pool-workers, a "
@@ -154,15 +206,10 @@ def main(argv=None):
     ap.add_argument("--trace", default=None, metavar="FILE",
                     help="Chrome trace-event JSON of the serving run "
                          "(requests appear as async spans)")
-    # the reference's language-model options (--arch, --gen, ...) are
-    # refused by name below, not as unknown arguments
-    args, unknown = ap.parse_known_args(argv)
-    if not args.audio:
-        ap.error("only the audio mode (--audio) is ported; the reference's "
-                 "language-model decoding mode is not")
-    if unknown:
-        ap.error(f"unrecognized arguments: {' '.join(unknown)}")
-    return _audio_main(args)
+    args = ap.parse_args(argv)
+    if (args.telemetry or args.trace) and not args.audio:
+        ap.error("--telemetry/--trace instrument the audio serving tier")
+    return _audio_main(args) if args.audio else _lm_main(args)
 
 
 if __name__ == "__main__":

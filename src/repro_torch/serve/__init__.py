@@ -3,9 +3,10 @@ the reference's `serve` package, audio side).
 
 Three tiers, by traffic shape:
 
-  * In-process pumps (`PreprocessService` without a pool): requests
-    batched per pump wave and computed in the calling process, on its
-    device. Right for offline drains, notebooks and tests.
+  * In-process pumps (`PreprocessService` without a pool, and the
+    language-model `engine.RequestQueue` over an `engine.ServeEngine`):
+    requests batched per pump wave and computed in the calling process,
+    on its device. Right for offline drains, notebooks and tests.
   * Persistent worker pool (`pool.WorkerPool`): long-lived `dist` workers
     over a standing leased queue, spawned once, each with its CUDA context
     and cuFFT plans warm across waves, SIGKILL-survivable (leases
@@ -17,8 +18,7 @@ Three tiers, by traffic shape:
 
 Batch and stream workloads belong to the execution plans
 (`core.plans`); this package is for requests that arrive over time and
-want their answers back one by one. The reference's language-model
-engine (`serve/engine.py`) is not ported.
+want their answers back one by one.
 """
 from repro_torch.serve.batcher import AdmissionError, ContinuousBatcher
 from repro_torch.serve.pool import WorkerPool

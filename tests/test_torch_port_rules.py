@@ -22,7 +22,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "fir_variants.py",
     ROOT / "scripts" / "mmse_variants.py",
-    ROOT / "scripts" / "dft_variants.py"]
+    ROOT / "scripts" / "dft_variants.py",
+    ROOT / "scripts" / "lm_profile.py"]
 
 
 def _imported_roots(path):

@@ -546,14 +546,27 @@ def test_launch_serve_pool_options(argv, line, tmp_path, capsys):
         assert any((tmp_path / "dp").iterdir()), "nothing went to the store"
 
 
-def test_launch_serve_refuses_the_language_model_mode(capsys):
+def test_launch_serve_runs_the_language_model_mode(capsys):
+    """Without --audio the launcher serves a language model (here a reduced
+    llama on the CPU)."""
+    from repro_torch.launch import serve
+    done = serve.main(["--arch", "llama3.2-3b", "--reduced", "--device",
+                       "cpu", "--batch", "2", "--prompt-len", "4", "--gen",
+                       "2", "--requests", "2"])
+    out = capsys.readouterr().out
+    assert sorted(done) == [0, 1]
+    assert "served 2 requests, 4 tokens in" in out and "tok/s) on cpu" in out
+
+
+@pytest.mark.parametrize("flag", [["--telemetry", "DIR"], ["--trace", "F"]])
+def test_launch_serve_refuses_instrumentation_without_audio(flag, capsys):
+    """--telemetry / --trace instrument the audio serving tier only, as in
+    the reference."""
     from repro_torch.launch import serve
     with pytest.raises(SystemExit) as e:
-        serve.main(["--arch", "gemma-7b"])
+        serve.main(["--reduced", "--device", "cpu", *flag])
     assert e.value.code == 2
-    assert "language-model" in capsys.readouterr().err
-    with pytest.raises(SystemExit):
-        serve.main([])
+    assert "audio serving tier" in capsys.readouterr().err
 
 
 def test_kernel_launch_counts_stay_exact_under_threads(monkeypatch):
