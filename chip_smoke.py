@@ -101,21 +101,25 @@ outside a checkout of the repo. Phases, any failure exits non-zero:
      `"speculated"` in the telemetry; the same without speculation; both
      walls and end-of-stream tails printed.
   6. lm_serve, language-model serving (no hand kernel on its path; the
-     launch counts must stay 0): the eight attention-family archs at
-     `reduced` widths and f32, parameters drawn on the CPU and copied to
-     the card, loss, prefill logits and one decode step's logits against
-     the port's CPU run within rtol = atol = 1e-4; llama3.2-3b at full
-     width and f32, decoding token 127 against the prefill cache of 127
-     tokens against prefill of all 128 (B = 2) within 5e-3; then
-     llama3.2-3b in bf16: `launch.serve`'s LM mode in process (8
-     requests, batch 4, prompt 128, 32 tokens), and a RequestQueue over
-     one engine twice on the same 8 prompts (the same tokens both times,
-     each below the vocab size, each request answered once). Printed
+     launch counts must stay 0): the ten archs at `reduced` widths and
+     f32, parameters drawn on the CPU and copied to the card, loss,
+     prefill logits and one decode step's logits (its caches built by the
+     engine's `decode_caches`) against the port's CPU run within rtol =
+     atol = 1e-4; llama3.2-3b and zamba2-1.2b at full width and f32,
+     decoding token 127 against the prefill cache of 127 tokens against
+     prefill of all 128 (B = 2) within 5e-3 (zamba2's 127-token prefill
+     runs its SSD scan with chunks of 1, 127 chunks a layer: the check's
+     wall is printed); then llama3.2-3b and zamba2-1.2b in bf16 each:
+     `launch.serve`'s LM mode in process (8 requests, batch 4, prompt 128,
+     32 tokens), and a RequestQueue over one engine twice on the same 8
+     prompts (the same tokens both times, each below the vocab size, each
+     request answered once); xlstm-125m in bf16: greedy `generate` twice on
+     4 prompts of 128 tokens, 32 new, the same tokens both times. Printed
      beside the card's line: parameters, peak memory, prefill ms (B = 4,
      S = 128) and decode ms a step (CUDA events, median of 10), generated
      tokens a second, the least times (`decode_bound_ms`,
      `prefill_bound_ms`), the Python threads alive when the phase began,
-     the decode step timed and traced in a fresh process
+     each arch's decode step timed and traced in a fresh process
      (`scripts/lm_profile.py`: device-busy share, kernels a step) and the
      phase's wall.
   7. one JSON line with every kernel's numbers (its launches summed over
@@ -2082,6 +2086,8 @@ def window382(torch, np, batches, base_pre, card):
 # ------------------------------------------------------- the LM serving phase
 
 LM_ARCH = "llama3.2-3b"         # the full-width arch: 3.21 B parameters
+HYBRID_ARCH = "zamba2-1.2b"     # Mamba2 + a shared attention block: 1.10 B
+XLSTM_ARCH = "xlstm-125m"       # mLSTM / sLSTM: 0.19 B
 LM_TOL = {"card_vs_cpu": 1e-4, "decode_vs_prefill": 5e-3}   # rtol = atol
 BF16_PEAK_FLOPS = 989e12        # H100 SXM dense bf16 (NVIDIA data sheet)
 
@@ -2100,19 +2106,17 @@ def lm_inputs(np, cfg, B, S, seed=1):
 
 
 def prefill_then_step(torch, model, batch, cache_dtype):
-    """prefill(tokens[:, :k]) into caches of S (+ prefix) rows, then one
-    decode step on token k = S - 1: (loss, prefill logits, step logits,
-    prefill(tokens) logits)."""
+    """prefill(tokens[:, :k]) into caches of S (+ prefix) rows (the engine's
+    `decode_caches`), then one decode step on token k = S - 1: (loss,
+    prefill logits, step logits, prefill(tokens) logits)."""
+    from repro_torch.serve.engine import decode_caches
     cfg = model.cfg
     B, S = batch["tokens"].shape
     k, P = S - 1, cfg.num_prefix_tokens or 0
-    kw = {"enc_len": batch["enc_frames"].shape[1]} if cfg.is_enc_dec else {}
     with torch.inference_mode():
         loss, _ = model.loss_fn(batch)
         logits, pf = model.prefill(dict(batch, tokens=batch["tokens"][:, :k]))
-        cache = model.init_cache(B, S + P, dtype=cache_dtype, **kw)
-        for name, v in pf.items():
-            cache[name][:, :, :v.shape[2]].copy_(v)
+        cache = decode_caches(model, pf, S + P, dtype=cache_dtype)
         step, _ = model.decode_step(cache, torch.as_tensor(
             batch["tokens"][:, k], device=model.device), P + k)
         full, _ = model.prefill(batch)
@@ -2120,14 +2124,13 @@ def prefill_then_step(torch, model, batch, cache_dtype):
 
 
 def lm_reduced_archs(torch, np):
-    """The attention-family archs at `reduced` widths, f32: parameters drawn
-    once on the CPU and copied to the card; loss, prefill logits and one
-    decode step's logits on the card against the port's CPU run."""
+    """The ten archs at `reduced` widths, f32: parameters drawn once on the
+    CPU and copied to the card; loss, prefill logits and one decode step's
+    logits on the card against the port's CPU run."""
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.models.zoo import build_model
     errs = {}
-    for arch in sorted(a for a, c in ARCHS.items()
-                       if c.family in ("dense", "moe", "vlm", "audio")):
+    for arch in sorted(ARCHS):
         cfg = dataclasses.replace(reduced(ARCHS[arch]), dtype="float32")
         cpu = build_model(cfg, device="cpu")
         gpu = build_model(cfg, device="cuda")
@@ -2142,32 +2145,93 @@ def lm_reduced_archs(torch, np):
             err, ok = compare(torch, g.cpu(), w, tol, tol)
             check(ok, f"{arch} {what}: card against CPU max abs err {err}")
             errs[arch][what] = err
+    check(len(errs) == 10, f"{len(errs)} archs checked, not ten")
     return errs
 
 
-def lm_full_width_f32(torch, np):
-    """llama3.2-3b at f32 on the card: decoding token k against the prefill
+def lm_full_width_f32(torch, np, arch):
+    """`arch` at f32 on the card: decoding token k against the prefill
     cache of tokens[:k] reproduces prefill(tokens[:k+1])'s next-token
-    logits (B = 2, a 128-token prompt, the cache f32)."""
+    logits (B = 2, a 128-token prompt, the cache f32); the check's wall."""
     from repro_torch.configs import ARCHS
     from repro_torch.models.zoo import build_model
-    cfg = dataclasses.replace(ARCHS[LM_ARCH], dtype="float32")
+    cfg = dataclasses.replace(ARCHS[arch], dtype="float32")
     model = build_model(cfg)
     batch = lm_inputs(np, cfg, 2, 128)
+    t0 = time.perf_counter()
     _, _, step, full = prefill_then_step(torch, model, batch, torch.float32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     tol = LM_TOL["decode_vs_prefill"]
     err, ok = compare(torch, step, full, tol, tol)
-    check(ok, f"{LM_ARCH} f32: decode against prefill max abs err {err}")
+    check(ok, f"{arch} f32: decode against prefill max abs err {err}")
     rec = {"max_abs_err": err, "tol": tol, "max_abs_logit":
            float(full.abs().max()), "params": sum(
-               p.numel() for p in model.parameters())}
+               p.numel() for p in model.parameters()), "wall_s": wall}
+    print(json.dumps({f"{arch}_f32_decode_vs_prefill": rec}), flush=True)
     del model, step, full
     torch.cuda.empty_cache()
     return rec
 
 
-def lm_serving(torch, np, timer):
-    """llama3.2-3b in bf16: the launcher's LM mode in process, then a
+def least_times(model, B, S, cache_rows):
+    """The least times of a prefill of (B, S) and of one decode step with
+    caches of `cache_rows` rows: decode reads the weights once (the
+    hybrid's shared block once more for each further application), the
+    recurrent states read and written and the K/V read, at the HBM rate;
+    prefill the larger of the weights' bytes at that rate and
+    2 * active params * B * S at the bf16 peak."""
+    from repro_torch.models.mamba2 import mamba_dims
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    active, read = n_params, param_bytes
+    state_bytes = kv_bytes = 0
+    kv_el = 2                                   # bf16 caches
+    if cfg.family == "hybrid":
+        reps = len(model.group_sizes()) - 1
+        active += reps * sum(p.numel() for p in model.shared.parameters())
+        read += reps * sum(p.numel() * p.element_size()
+                           for p in model.shared.parameters())
+        d_inner, H, P, N = mamba_dims(cfg)
+        state_bytes = 2 * cfg.num_layers * B * H * P * N * 4
+        kv_bytes = 2 * (reps + 1) * B * cache_rows * cfg.kv_dim * kv_el
+    elif cfg.family == "ssm":
+        state = model.init_cache(B)
+        state_bytes = 2 * sum(t.numel() * t.element_size()
+                              for v in state.values() for t in v)
+        del state
+    else:
+        kv_bytes = 2 * cfg.num_layers * B * cache_rows * cfg.kv_dim * kv_el
+    return {"params": n_params, "active_params_per_token": active,
+            "decode_bytes": read + state_bytes + kv_bytes,
+            "decode_bound_ms": (read + state_bytes + kv_bytes)
+            / HBM_BYTES_PER_S * 1e3,
+            "prefill_bound_ms": max(param_bytes / HBM_BYTES_PER_S,
+                                    2 * active * B * S / BF16_PEAK_FLOPS)
+            * 1e3}
+
+
+def step_times(torch, np, timer, model, prompts, cache_rows):
+    """Prefill of `prompts` and one decode step after it, CUDA events,
+    median of 10 each."""
+    from repro_torch.serve.engine import decode_caches
+    cfg = model.cfg
+    B, S = prompts.shape
+    batch = {"tokens": prompts}
+    with torch.inference_mode():
+        prefill_ms = timer(lambda: model.prefill(batch), reps=10)
+        logits, pf = model.prefill(batch)
+        caches = decode_caches(model, pf, cache_rows)
+        tok = logits[:, :cfg.vocab_size].argmax(-1)
+        decode_ms = timer(lambda: model.decode_step(caches, tok, S), reps=10)
+    del caches, pf, logits
+    return {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms}
+
+
+def lm_serving(torch, np, timer, arch):
+    """`arch` in bf16: the launcher's LM mode in process, then a
     RequestQueue over one engine twice on the same 8 prompts (the same
     tokens both times, every token below the vocab size, every request
     answered once), prefill and decode-step times and the peak memory."""
@@ -2176,16 +2240,13 @@ def lm_serving(torch, np, timer):
     from repro_torch.models.zoo import build_model
     from repro_torch.serve.engine import RequestQueue, ServeEngine
     B, S, GEN, N = 4, 128, 32, 8
-    done = serve.main(["--arch", LM_ARCH, "--batch", str(B), "--prompt-len",
+    done = serve.main(["--arch", arch, "--batch", str(B), "--prompt-len",
                        str(S), "--gen", str(GEN), "--requests", str(N)])
     check(sorted(done) == list(range(N)), f"launcher served {done}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = ARCHS[LM_ARCH]
+    cfg = ARCHS[arch]
     model = build_model(cfg)
-    n_params = sum(p.numel() for p in model.parameters())
-    param_bytes = sum(p.numel() * p.element_size()
-                      for p in model.parameters())
     engine = ServeEngine(model, max_seq=S + GEN + 8)
     prompts = np.random.RandomState(7).randint(0, cfg.vocab_size, (N, S))
     runs = []
@@ -2207,36 +2268,69 @@ def lm_serving(torch, np, timer):
               and (toks < cfg.vocab_size).all(), "tokens out of range")
         runs.append((toks, wall))
     check(np.array_equal(runs[0][0], runs[1][0]),
-          "two runs on the same prompts gave different tokens")
-
-    # prefill (B, S) and one decode step, CUDA events, median of 10
-    batch = {"tokens": prompts[:B]}
-    with torch.inference_mode():
-        prefill_ms = timer(lambda: model.prefill(batch), reps=10)
-        logits, pf = model.prefill(batch)
-        caches = model.init_cache(B, S + GEN)
-        for name, v in pf.items():
-            caches[name][:, :, :S].copy_(v)
-        tok = logits[:, :cfg.vocab_size].argmax(-1)
-        decode_ms = timer(lambda: model.decode_step(caches, tok, S), reps=10)
-    kv_bytes = (2 * cfg.num_layers * B * (S + GEN) * cfg.kv_dim
-                * caches["k"].element_size())
-    rec = {"arch": LM_ARCH, "dtype": cfg.dtype, "params": n_params,
-           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+          f"{arch}: two runs on the same prompts gave different tokens")
+    rec = {"arch": arch, "dtype": cfg.dtype,
            "batch": B, "prompt_len": S, "gen": GEN, "requests": N,
-           "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+           **step_times(torch, np, timer, model, prompts[:B], S + GEN),
            "generated_tok_per_s": [N * GEN / w for _, w in runs],
            "queue_wall_s": [w for _, w in runs],
-           # least times: the weights (and the KV cache) read once a step;
-           # prefill's 2 * params * B * S operations at the bf16 peak
-           "decode_bound_ms": (param_bytes + kv_bytes)
-           / HBM_BYTES_PER_S * 1e3,
-           "prefill_bound_ms": max(param_bytes / HBM_BYTES_PER_S,
-                                   2 * n_params * B * S / BF16_PEAK_FLOPS)
-           * 1e3}
-    del engine, model, caches, pf, logits
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           **least_times(model, B, S, S + GEN)}
+    del engine, model
     torch.cuda.empty_cache()
+    print(json.dumps({f"{arch}_bf16_serving": rec}), flush=True)
     return rec
+
+
+def lm_generate_twice(torch, np, timer, arch):
+    """`arch` in bf16: greedy `generate` twice on 4 prompts of 128 tokens,
+    32 new ones: the same tokens both times, each below the vocab size;
+    prefill and decode-step times."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import ServeEngine
+    B, S, GEN = 4, 128, 32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ARCHS[arch]
+    model = build_model(cfg)
+    engine = ServeEngine(model, max_seq=S + GEN + 8)
+    prompts = np.random.RandomState(8).randint(0, cfg.vocab_size, (B, S))
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        toks = engine.generate(prompts, GEN)
+        runs.append((toks, time.perf_counter() - t0))
+        check(toks.shape == (B, GEN) and (toks >= 0).all()
+              and (toks < cfg.vocab_size).all(), "tokens out of range")
+    check(np.array_equal(runs[0][0], runs[1][0]),
+          f"{arch}: two runs on the same prompts gave different tokens")
+    rec = {"arch": arch, "dtype": cfg.dtype, "batch": B, "prompt_len": S,
+           "gen": GEN,
+           **step_times(torch, np, timer, model, prompts, S + GEN),
+           "generated_tok_per_s": [B * GEN / w for _, w in runs],
+           "generate_wall_s": [w for _, w in runs],
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           **least_times(model, B, S, S + GEN)}
+    del engine, model
+    torch.cuda.empty_cache()
+    print(json.dumps({f"{arch}_bf16_generate": rec}), flush=True)
+    return rec
+
+
+def fresh_process_decode(arch):
+    """The arch's bf16 decode step timed and traced in a fresh process
+    (scripts/lm_profile.py): the device-busy share and kernels a step."""
+    out = subprocess.run([sys.executable, str(ROOT / "scripts" /
+                                              "lm_profile.py"),
+                          "--arch", arch],
+                         capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0,
+          f"lm_profile.py --arch {arch} failed: {out.stderr[-2000:]}")
+    prof = json.loads(out.stdout.strip().splitlines()[-1])
+    return {k: prof[k] for k in (
+        "decode_ms_per_step", "traced_wall_ms_per_step",
+        "device_busy_ms_per_step", "device_busy_share", "kernels_per_step")}
 
 
 def lm_serve(torch, np, timer, card):
@@ -2256,18 +2350,16 @@ def lm_serve(torch, np, timer, card):
     rec["reduced_card_vs_cpu"] = lm_reduced_archs(torch, np)
     print(json.dumps({"lm_reduced_card_vs_cpu": rec["reduced_card_vs_cpu"]}),
           flush=True)
-    rec["full_width_f32_decode_vs_prefill"] = lm_full_width_f32(torch, np)
-    rec["bf16_serving"] = lm_serving(torch, np, timer)
-    # the same decode step in a fresh process, traced: the device-busy
-    # share and kernels a step (scripts/lm_profile.py)
-    out = subprocess.run([sys.executable, str(ROOT / "scripts" /
-                                              "lm_profile.py")],
-                         capture_output=True, text=True, timeout=600)
-    check(out.returncode == 0, f"lm_profile.py failed: {out.stderr[-2000:]}")
-    prof = json.loads(out.stdout.strip().splitlines()[-1])
-    rec["fresh_process_decode"] = {k: prof[k] for k in (
-        "decode_ms_per_step", "traced_wall_ms_per_step",
-        "device_busy_ms_per_step", "device_busy_share", "kernels_per_step")}
+    rec["full_width_f32_decode_vs_prefill"] = {
+        arch: lm_full_width_f32(torch, np, arch)
+        for arch in (LM_ARCH, HYBRID_ARCH)}
+    rec["bf16_serving"] = {arch: lm_serving(torch, np, timer, arch)
+                           for arch in (LM_ARCH, HYBRID_ARCH)}
+    rec["bf16_generate"] = {XLSTM_ARCH: lm_generate_twice(torch, np, timer,
+                                                          XLSTM_ARCH)}
+    rec["fresh_process_decode"] = {
+        arch: fresh_process_decode(arch)
+        for arch in (LM_ARCH, HYBRID_ARCH, XLSTM_ARCH)}
     launched = kernels.launches()
     check(not any(launched.values()),
           f"a hand kernel launched on the LM path: {launched}")

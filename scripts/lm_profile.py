@@ -4,9 +4,11 @@
     python3 scripts/lm_profile.py [--arch llama3.2-3b] [--batch 4]
         [--prompt-len 128] [--steps 8] [--trace FILE]
 
-Builds the arch at its published widths in bf16 with weights drawn from a
-seed, prefills `--batch` random prompts of `--prompt-len` tokens into a
-cache, then times one decode step (CUDA events, median of 10) and traces
+Builds the arch (any of the ten, the recurrent zamba2-1.2b and xlstm-125m
+included) at its published widths in bf16 with weights drawn from a seed,
+prefills `--batch` random prompts of `--prompt-len` tokens and builds the
+decode caches from the prefill's as the engine does (`decode_caches`),
+then times one decode step (CUDA events, median of 10) and traces
 `--steps` steps with `torch.profiler`: the device-busy share of the traced
 window (kernel time over wall), the kernels launched a step, and the top
 operators by host time and by device time. `--trace FILE` also writes the
@@ -49,6 +51,7 @@ def main(argv=None):
 
     from repro_torch.configs import get_config
     from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import decode_caches
 
     if not torch.cuda.is_available():
         print("lm_profile: no CUDA device", file=sys.stderr)
@@ -64,9 +67,7 @@ def main(argv=None):
     prompts = np.random.RandomState(0).randint(0, cfg.vocab_size, (B, S))
     with torch.inference_mode():
         logits, pf = model.prefill({"tokens": prompts})
-        caches = model.init_cache(B, S + n + 1)
-        for name, v in pf.items():
-            caches[name][:, :, :S].copy_(v)
+        caches = decode_caches(model, pf, S + n + 1)
         tok = logits[:, :cfg.vocab_size].argmax(-1)
 
         def step(i=0):

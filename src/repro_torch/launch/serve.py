@@ -9,8 +9,12 @@ Language-model decoding (the model-zoo twin), the default:
 It builds the arch (`--reduced`: the family-preserving small config) with
 parameters drawn from `--seed`, serves `--requests` random prompts through
 a `RequestQueue` over a `ServeEngine` in batches of `--batch`, and prints
-the tokens served a second and the first request's tokens. The attention
-families are ported; the recurrent ones (zamba2, xlstm) raise.
+the tokens served a second and the first request's tokens. All ten archs
+serve, the recurrent zamba2-1.2b and xlstm-125m included:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+      --batch 4 --prompt-len 128 --gen 32 --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
+      --reduced --device cpu
 
 Audio preprocessing behind the serving tier (`--audio`):
   PYTHONPATH=src python -m repro_torch.launch.serve --audio \

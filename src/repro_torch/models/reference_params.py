@@ -1,12 +1,16 @@
 """Carry the JAX reference's parameters into a port model (port only).
 
 The reference's `model.init(key)` is a tree of nested dicts whose stacked
-groups ("layers"; "enc" and "dec" for the encoder-decoder) hold every
-layer's leaf on a leading layer axis. The port keeps the same leaf names
-and layouts, with each stacked group an `nn.ModuleList`, so loading is a
-copy by name: split the layer axis across the list and cast to the dtype
-of the port's parameter (the model's dtype; f32 for the MoE router, as in
-the reference). Random streams differ between the frameworks, so this is
+groups ("layers"; "enc" and "dec" for the encoder-decoder; "mlstm" and
+"slstm" for the xLSTM) hold every layer's leaf on a leading layer axis,
+nested dicts inside a layer included (the hybrid's `layers.mamba.*`); an
+unstacked group (the hybrid's `shared` block) is one layer's dict. The
+port keeps the same leaf names and layouts, with each stacked group an
+`nn.ModuleList`, so loading is a copy by name: split the layer axis across
+the list and cast to the dtype of the port's parameter (the model's dtype;
+f32 where the reference keeps f32 in any model: the MoE router, Mamba's
+`dt_bias`, `A_log` and `D`, the mLSTM's `w_if` / `b_if`, the sLSTM's `w_g`,
+`r_g` and `b_g`). Random streams differ between the frameworks, so this is
 how a port model is held against the reference on the same weights.
 """
 from __future__ import annotations

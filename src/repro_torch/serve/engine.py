@@ -9,8 +9,9 @@ Differences from the reference, by design:
   * The model (an `nn.Module`) carries its parameters, so `ServeEngine`
     takes no `params` argument; it runs on the model's device, which must
     be the one `device` resolves to (None: the card; raises without one).
-  * Decode writes each new K/V row into the cache in place (the reference
-    donates the cache buffers to each jitted step).
+  * Decode writes each new K/V row, SSM state or xLSTM state into the
+    cache in place (the reference donates the cache buffers to each jitted
+    step).
   * Sampling with a temperature draws from a `torch.Generator`, whose
     stream is not `jax.random`'s: sampled tokens differ from the
     reference's, greedy ones (temperature 0) do not.
@@ -24,6 +25,32 @@ import torch
 
 from repro_torch.distributed.sharding import NULL_RULES
 from repro_torch.models.zoo import model_device
+
+
+KV_CACHES = ("k", "v", "xk", "xv")
+
+
+def decode_caches(model, pf_caches, max_seq, dtype=None):
+    """The decode caches built from `model.prefill`'s caches, by family, as
+    the reference's engine builds them: the recurrent ssm family (xLSTM)
+    decodes on its prefill states as they are; every other family gets
+    `model.init_cache(B, max_seq)` (in `dtype` if given) with the prefill's
+    K/V slabs ("k", "v"; cross "xk", "xv") copied into its first rows, and
+    any other entry (the hybrid's "mamba" states and conv tails) taken
+    from the prefill as it is."""
+    cfg = model.cfg
+    if cfg.family == "ssm":
+        return pf_caches
+    kw = {} if dtype is None else {"dtype": dtype}
+    if cfg.is_enc_dec:
+        kw["enc_len"] = pf_caches["xk"].shape[2]
+    caches = model.init_cache(pf_caches["k"].shape[1], max_seq, **kw)
+    for k, src in pf_caches.items():
+        if k in KV_CACHES:
+            caches[k][:, :, :src.shape[2]].copy_(src)
+        else:
+            caches[k] = src
+    return caches
 
 
 class ServeEngine:
@@ -52,8 +79,10 @@ class ServeEngine:
         """prompts: (B, S_prompt) integer array. Returns (B, n_tokens) int32
         numpy.
 
-        Runs prefill once, copies its K/V (and cross K/V) into caches of
-        `max_seq` rows, then n_tokens - 1 decode steps against them. With a
+        Runs prefill once, builds the decode caches from its caches
+        (`decode_caches`: K/V copied into caches of `max_seq` rows,
+        recurrent states as they are), then n_tokens - 1 decode steps
+        against them. With a
         temperature, draws from the engine's generator, else from one
         seeded `seed`."""
         prompts = np.asarray(prompts)
@@ -70,12 +99,7 @@ class ServeEngine:
                 batch[k] = torch.as_tensor(v, device=self.device)
             logits, pf_caches = self.model.prefill(batch, self.rules)
 
-            kwargs = {}
-            if self.cfg.is_enc_dec:
-                kwargs["enc_len"] = pf_caches["xk"].shape[2]
-            caches = self.model.init_cache(B, self.max_seq, **kwargs)
-            for k, src in pf_caches.items():
-                caches[k][:, :, :src.shape[2]].copy_(src)
+            caches = decode_caches(self.model, pf_caches, self.max_seq)
 
             prefix_off = self.cfg.num_prefix_tokens or 0
             out = torch.empty((B, n_tokens), dtype=torch.int32,

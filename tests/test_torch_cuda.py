@@ -609,7 +609,8 @@ def test_chaos_runner_on_card_leaves_no_worker(card):
 # ------------------------------------------------ language-model serving
 
 LM_ARCHS = ["arctic-480b", "gemma-7b", "granite-moe-3b-a800m", "llama3.2-3b",
-            "minitron-8b", "nemotron-4-15b", "paligemma-3b", "whisper-small"]
+            "minitron-8b", "nemotron-4-15b", "paligemma-3b", "whisper-small",
+            "xlstm-125m", "zamba2-1.2b"]
 
 
 def _lm_inputs(lm_cfg, B=2, S=32, seed=1):
@@ -631,6 +632,7 @@ def test_lm_reduced_arch_on_card_matches_cpu(card, arch):
     prefill logits and one decode step's logits within 1e-4."""
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import decode_caches
     torch.backends.cuda.matmul.allow_tf32 = False
     lm_cfg = dataclasses.replace(reduced(ARCHS[arch]), dtype="float32")
     cpu = build_model(lm_cfg, device="cpu")
@@ -639,16 +641,13 @@ def test_lm_reduced_arch_on_card_matches_cpu(card, arch):
     batch = _lm_inputs(lm_cfg)
     B, S = batch["tokens"].shape
     k, P = S - 1, lm_cfg.num_prefix_tokens or 0
-    kw = {"enc_len": 16} if lm_cfg.is_enc_dec else {}
     outs = []
     with torch.inference_mode():
         for m in (cpu, gpu):
             loss, _ = m.loss_fn(batch)
             logits, caches = m.prefill(dict(batch,
                                             tokens=batch["tokens"][:, :k]))
-            cache = m.init_cache(B, S + P, dtype=torch.float32, **kw)
-            for name, v in caches.items():
-                cache[name][:, :, :v.shape[2]].copy_(v)
+            cache = decode_caches(m, caches, S + P, dtype=torch.float32)
             step, _ = m.decode_step(cache, torch.as_tensor(
                 batch["tokens"][:, k], device=m.device), P + k)
             outs.append([loss, logits, step])
@@ -667,6 +666,27 @@ def test_lm_full_width_llama_bf16_serving_deterministic(card):
     lm_cfg = ARCHS["llama3.2-3b"]
     model = build_model(lm_cfg, device=card)
     assert model.emb["tok"].dtype == torch.bfloat16
+    eng = ServeEngine(model, max_seq=64)
+    prompts = np.random.RandomState(0).randint(0, lm_cfg.vocab_size, (4, 32))
+    a, b = eng.generate(prompts, 16), eng.generate(prompts, 16)
+    np.testing.assert_array_equal(a, b)
+    assert a.shape == (4, 16) and (a >= 0).all()
+    assert (a < lm_cfg.vocab_size).all()
+
+
+def test_lm_full_width_zamba2_bf16_serving_deterministic(card):
+    """zamba2-1.2b (38 Mamba2 layers, one shared attention block applied 7
+    times) at its published widths, bf16, random weights from a seed:
+    greedy generation twice on the same prompts gives the same tokens, each
+    below the vocab size."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.zoo import HybridLM, build_model
+    from repro_torch.serve.engine import ServeEngine
+    lm_cfg = ARCHS["zamba2-1.2b"]
+    model = build_model(lm_cfg, device=card)
+    assert isinstance(model, HybridLM)
+    assert model.emb["tok"].dtype == torch.bfloat16
+    assert model.layers[0]["mamba"]["A_log"].dtype == torch.float32
     eng = ServeEngine(model, max_seq=64)
     prompts = np.random.RandomState(0).randint(0, lm_cfg.vocab_size, (4, 32))
     a, b = eng.generate(prompts, 16), eng.generate(prompts, 16)

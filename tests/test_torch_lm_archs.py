@@ -26,6 +26,7 @@ from repro.models.zoo import build_model as rbuild
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.models.reference_params import load_reference_params
 from repro_torch.models.zoo import build_model
+from repro_torch.serve.engine import decode_caches
 
 ATTENTION_ARCHS = sorted(a for a, c in ARCHS.items()
                          if c.family in ("dense", "moe", "vlm", "audio"))
@@ -87,9 +88,7 @@ def test_arch_matches_reference(arch):
         loss, metrics = model.loss_fn(batch)
         logits, caches = model.prefill(batch)
         _, hc = model.prefill(head)
-        cache = model.init_cache(B, S + P, dtype=torch.float32, **ekw)
-        for kk, v in hc.items():
-            cache[kk][:, :, :v.shape[2]].copy_(v)
+        cache = decode_caches(model, hc, S + P, dtype=torch.float32)
         dlogits, cache2 = model.decode_step(cache, torch.as_tensor(tok),
                                             P + k)
     np.testing.assert_allclose(float(loss), float(rloss), rtol=1e-5)
@@ -126,10 +125,7 @@ def test_decode_matches_prefill(arch, cache_dtype):
     with torch.inference_mode():
         want, _ = model.prefill(full)
         _, pf = model.prefill(dict(full, tokens=full["tokens"][:, :k]))
-        kw = {"enc_len": 16} if cfg.is_enc_dec else {}
-        caches = model.init_cache(B, S + P, dtype=cache_dtype, **kw)
-        for key, v in pf.items():
-            caches[key][:, :, :v.shape[2]].copy_(v)
+        caches = decode_caches(model, pf, S + P, dtype=cache_dtype)
         got, _ = model.decode_step(caches, torch.as_tensor(
             full["tokens"][:, k]), P + k)
     assert got.shape == (B, cfg.padded_vocab) and torch.isfinite(got).all()

@@ -173,10 +173,24 @@ def test_launch_serve_lm_mode_is_seeded(capsys):
     assert len(toks) == 4 and all(0 <= t < 512 for t in toks)
 
 
-@pytest.mark.parametrize("family_arch", ["zamba2-1.2b", "xlstm-125m"])
-def test_build_model_refuses_the_recurrent_families(family_arch):
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        build_model(reduced(ARCHS[family_arch]), device="cpu")
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_build_model_builds_every_reduced_arch(arch):
+    """All ten archs: the family's class, on the CPU, and a finite
+    prefill."""
+    from repro_torch.models import zoo
+    cfg = reduced(ARCHS[arch])
+    model = build_model(cfg, device="cpu")
+    want = {"dense": zoo.DecoderLM, "moe": zoo.DecoderLM,
+            "vlm": zoo.DecoderLM, "audio": zoo.EncDecLM,
+            "hybrid": zoo.HybridLM, "ssm": zoo.XLSTMLM}[cfg.family]
+    assert type(model) is want and model.device.type == "cpu"
+    rng = np.random.RandomState(0)
+    batch = {"tokens": rng.randint(0, cfg.vocab_size, (2, 8))}
+    batch.update(_extra(cfg, 2, rng) or {})
+    with torch.inference_mode():
+        logits, caches = model.prefill(batch)
+    assert logits.shape == (2, cfg.padded_vocab)
+    assert torch.isfinite(logits).all() and caches
 
 
 def _entry_points():
