@@ -122,10 +122,36 @@ outside a checkout of the repo. Phases, any failure exits non-zero:
      each arch's decode step timed and traced in a fresh process
      (`scripts/lm_profile.py`: device-busy share, kernels a step) and the
      phase's wall.
-  7. one JSON line with every kernel's numbers (its launches summed over
-     the main-path runs, the workers' included), the whole run's wall,
-     then the card's line and the result line `{"ok": true, "device":
-     {...}}` last.
+  7. lm_train, language-model training: (a) one `make_train_step` step
+     of each of the ten archs at `reduced` widths and f32 on the card and
+     on the CPU from the same parameters (and granite-moe with the 8-bit
+     state, llama with int8 gradients over 4 microbatches): loss rtol
+     1e-5, grad norm 1e-4, parameters 1e-5 but where the gradient is below
+     1e-4 of its leaf's largest (Adam's first step, sign(g), may go the
+     other way there: 2 lr apart); (b) llama3.2-3b at full width in bf16
+     through `launch.train`'s loop in process, 6 steps of TokenLoader
+     twice: a quick gate at B = 4, S = 128, then the training run at S =
+     2048 and the largest B of 8, 4, 2, 1 whose peak memory, measured at 2
+     and 4 layers and extrapolated to 28, fits 85% of the card (in a
+     process of its own with the allocator's expandable segments); every
+     loss finite, the first in (2, ln(vocab) + 2) and, at B = 4, S = 128,
+     within 0.05 of the same weights' f32 loss on its batch (forward only;
+     printed with the bf16 one and the probes' first losses at 2 and 4
+     layers); step ms (CUDA events, median of steps 2-6), trained tokens a
+     second, peak memory and the least time (6 x tokens x (params + layers
+     x S x q width) at the bf16 peak, or 36 bytes a parameter at the HBM
+     rate); (c) reduced llama through `launch.train`, 4 steps straight
+     with a checkpoint every 2, then, the step-4 checkpoint deleted,
+     `--resume` for 2 more: parameters and state within 1e-6; (d) the
+     `examples/preprocess_and_train_torch.py` run of 12 steps, with the
+     launch counts set to 0 just before and read just after: the FIR, STFT
+     and fused-tail kernels must have launched ((a)-(c) launch none); then
+     its first step again, uncounted, against the port's CPU run (masks,
+     cleaned audio 2e-4) and its featurising STFT against the plain one.
+  8. one JSON line with every kernel's numbers (its launches summed over
+     the main-path runs, the workers' and the example's included), the
+     whole run's wall, then the card's line and the result line `{"ok":
+     true, "device": {...}}` last.
 
 It imports only `repro_torch`, `torch` and numpy.
 """
@@ -2370,6 +2396,427 @@ def lm_serve(torch, np, timer, card):
     return rec
 
 
+# ------------------------------------------------------ the LM training phase
+
+TRAIN_LR = 1e-3                 # the card-vs-CPU steps: lr from step 1
+TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "params": 1e-5,
+             "small_grad": 1e-4, "resume": 1e-6,
+             # the full-width first loss in bf16 against the same weights'
+             # loss in f32, absolute (bf16 rounding over 28 layers)
+             "init_loss_bf16_vs_f32": 0.05}
+TRAIN_STEPS = 6                 # full-width steps; step ms: median of 2-6
+TRAIN_QUICK = (4, 128)          # (B, S) of the quick full-width gate
+TRAIN_SEQ = 2048                # the full-width training run's S: a
+#                                 pre-training / fine-tuning sequence
+TRAIN_BATCHES = (8, 4, 2, 1)    # its B: the largest the probe fits
+TRAIN_FIT = 0.85                # ... in this share of the card
+# bytes a parameter per step at bf16 parameters and gradients, f32 masters
+# and moments: forward and backward read the parameter twice and write its
+# gradient (6); the clip reads the gradient, the update reads it, the
+# master, m and v, writes them and the parameter (30)
+TRAIN_BYTES_PER_PARAM = 6 + 30
+
+
+def first_moment(m):
+    """A first moment as f32 on the CPU (an 8-bit one dequantized)."""
+    from repro_torch.train.compression import dequantize_rowwise_int8
+    if isinstance(m, dict):
+        m = dequantize_rowwise_int8(m["codes"], m["scale"])
+    return m.detach().float().cpu()
+
+
+def one_train_step(model, opt_cfg, batch, microbatches, compress):
+    """One `make_train_step` step of `model` from its current parameters
+    and a fresh optimizer state: (state, metrics)."""
+    from repro_torch.distributed.sharding import NULL_RULES
+    from repro_torch.train import compression as C
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_step import make_train_step
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    state = O.init_opt_state(opt_cfg, params)
+    if compress:
+        state["ef_residual"] = C.init_residuals(params)
+    return make_train_step(model, NULL_RULES, opt_cfg, microbatches,
+                           compress)(state, batch)
+
+
+def lm_train_reduced(torch, np):
+    """(a) One train step of each of the ten archs (`reduced`, f32) on the
+    card and on the CPU from the same parameters, plus granite-moe with the
+    8-bit state and llama with int8 gradients over 4 microbatches: loss
+    rtol 1e-5, grad norm rtol 1e-4, every parameter after the step within
+    1e-5 (atol and rtol) except where the gradient Adam saw is below 1e-4
+    of its leaf's largest on either side (read from m, which is (1 - b1) x
+    that gradient after one step): there Adam's first step, sign(g), may go
+    the other way, 2 lr apart."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train.optimizer import OptConfig
+    cases = [(a, False, 1, False) for a in sorted(ARCHS)] + [
+        ("granite-moe-3b-a800m", True, 1, False),
+        ("llama3.2-3b", False, 4, True)]
+    out = {}
+    for arch, quantize, microbatches, compress in cases:
+        label = arch + ("_8bit_state" if quantize else "") + (
+            "_int8_grads_4_microbatches" if compress else "")
+        cfg = dataclasses.replace(reduced(ARCHS[arch]), dtype="float32")
+        cpu = build_model(cfg, device="cpu")
+        gpu = build_model(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        batch = lm_inputs(np, cfg, 2 * microbatches, 32)
+        opt_cfg = OptConfig(lr=TRAIN_LR, warmup_steps=1, decay_steps=10,
+                            quantize_state=quantize)
+        cs, cmet = one_train_step(cpu, opt_cfg, batch, microbatches,
+                                  compress)
+        gs, gmet = one_train_step(gpu, opt_cfg, batch, microbatches,
+                                  compress)
+        check(gpu.emb["tok"].device.type == "cuda", "model not on the card")
+        rec = {}
+        for k in ("loss", "grad_norm"):
+            c, g = float(cmet[k]), float(gmet[k])
+            rec[k] = abs(g - c) / abs(c)
+            check(np.isfinite(g) and rec[k] <= TRAIN_TOL[k],
+                  f"{label}: {k} on the card {g} against {c} on the CPU")
+        lr = float(cmet["lr"])
+        gparams = dict(gpu.named_parameters())
+        worst = worst_small = 0.0
+        n_small = 0
+        for name, p in cpu.named_parameters():
+            want = p.detach()
+            got = gparams[name].detach().cpu()
+            mc = first_moment(cs["m"][name])
+            mg = first_moment(gs["m"][name])
+            small = ((mc.abs() < TRAIN_TOL["small_grad"] * mc.abs().max())
+                     | (mg.abs() < TRAIN_TOL["small_grad"]
+                        * mg.abs().max()))
+            err = (got - want).abs()
+            tol = TRAIN_TOL["params"] * (1 + want.abs())
+            check(bool((err <= tol + 2 * lr * small).all()),
+                  f"{label}: {name} after the step, max |err| "
+                  f"{float(err.max())} on the card against the CPU")
+            worst = max(worst, float(torch.where(small, 0, err).max()))
+            worst_small = max(worst_small, float(torch.where(
+                small, err, 0).max()))
+            n_small += int(small.sum())
+        rec.update(params_max_abs_err=worst,
+                   small_grad_elements=n_small,
+                   small_grad_max_abs_err=worst_small, lr=lr)
+        out[label] = rec
+    check(len(out) == 12, f"{len(out)} train steps checked, not twelve")
+    return out
+
+
+def train_peak(torch, np, layers, B, S):
+    """(peak allocated bytes, first loss) of two bf16 train steps of
+    llama3.2-3b cut to `layers` layers, with the seed-0 weights and the
+    TokenLoader batches (seed 0, B, S) that `launch.train` would take,
+    everything else freed."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.loader import TokenLoader
+    from repro_torch.distributed.sharding import NULL_RULES
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(ARCHS[LM_ARCH], num_layers=layers)
+    model = build_model(cfg)
+    opt_cfg = OptConfig(lr=3e-3, warmup_steps=1, decay_steps=6)
+    state = init_train_state(model, opt_cfg)
+    step = make_train_step(model, NULL_RULES, opt_cfg)
+    losses = []
+    for _, batch in TokenLoader(cfg.vocab_size, B, S, n_batches=2):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        check(np.isfinite(losses[-1]),
+              f"{LM_ARCH} at {layers} layers: the loss is not finite")
+    peak = torch.cuda.max_memory_allocated()
+    del model, state, step, metrics
+    torch.cuda.empty_cache()
+    return peak, losses[0]
+
+
+def probe_peak(torch, np, B, S):
+    """llama3.2-3b's training peak at B, S measured at 2 and 4 layers and
+    extrapolated linearly to its 28 (state and layer checkpoints grow by
+    layer; logits and the update's temporaries do not)."""
+    from repro_torch.configs import ARCHS
+    runs = {n: train_peak(torch, np, n, B, S) for n in (2, 4)}
+    per_layer = (runs[4][0] - runs[2][0]) / 2
+    rec = {"batch": B, "seq": S,
+           "peak_bytes_at_layers": {n: p for n, (p, _) in runs.items()},
+           "first_loss_at_layers": {n: x for n, (_, x) in runs.items()},
+           "per_layer_bytes": per_layer,
+           "predicted_peak_bytes": runs[4][0] + per_layer * (
+               ARCHS[LM_ARCH].num_layers - 4)}
+    print(json.dumps({"lm_train_memory_probe": rec}), flush=True)
+    return rec
+
+
+def init_losses(torch, B, S):
+    """llama3.2-3b's loss at init, forward only, on the first TokenLoader
+    batch (seed 0, B, S) with the seed-0 bf16 weights `launch.train`
+    draws: in bf16, and on the same weights in f32."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.loader import TokenLoader
+    from repro_torch.distributed.sharding import NULL_RULES
+    from repro_torch.models.zoo import build_model
+    cfg = ARCHS[LM_ARCH]
+    _, batch = next(iter(TokenLoader(cfg.vocab_size, B, S, n_batches=1)))
+    bf16 = build_model(cfg)
+    f32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    f32.load_state_dict(bf16.state_dict())
+    with torch.no_grad():
+        out = {dt: float(m.loss_fn(batch, NULL_RULES)[0])
+               for dt, m in (("bfloat16", bf16), ("float32", f32))}
+    del bf16, f32
+    torch.cuda.empty_cache()
+    return out
+
+
+# `launch.train` in a process of its own, its record as the last line
+TRAIN_CHILD = """
+import json, sys, torch
+from repro_torch.launch import train
+out = train.main(sys.argv[1:])
+print(json.dumps({"step": out["step"], "losses": out["losses"],
+                  "step_ms": out["step_ms"],
+                  "params": sum(p.numel() for p in out["model"].parameters()),
+                  "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                  "peak_reserved_bytes": torch.cuda.max_memory_reserved()}))
+"""
+
+
+def train_run(torch, np, B, S, fresh=False):
+    """`launch.train`'s loop: llama3.2-3b at full width in bf16,
+    TRAIN_STEPS steps of TokenLoader at B, S; in this process, or with
+    `fresh` in one of its own started with the allocator's expandable
+    segments (PYTORCH_CUDA_ALLOC_CONF, read when CUDA starts: without
+    them a step at B = 4, S = 2048 finds no 3.9 GiB block for its f32
+    logits with 17 GiB cached and free). Step ms (CUDA events, median of
+    steps 2 on), trained tok/s, peak memory and the least time: the larger
+    of 6 x params x tokens plus causal attention's 6 x layers x S x q
+    width x tokens at the bf16 peak, and 36 B a parameter at the HBM
+    rate."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import train
+    cfg = ARCHS[LM_ARCH]
+    argv = ["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(B), "--seq", str(S)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if fresh:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+        proc = subprocess.run([sys.executable, "-c", TRAIN_CHILD] + argv,
+                              capture_output=True, text=True, env=env,
+                              timeout=600)
+        check(proc.returncode == 0, f"launch.train at B={B} S={S} failed: "
+              f"{proc.stderr[-2000:]}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+    else:
+        out = train.main(argv)
+        out.update(params=sum(p.numel() for p in out["model"].parameters()),
+                   peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+                   peak_reserved_bytes=torch.cuda.max_memory_reserved())
+    wall = time.perf_counter() - t0
+    n_params = out["params"]
+    step_ms = statistics.median(out["step_ms"][1:])
+    tokens = B * S
+    flops = 6 * tokens * (n_params + cfg.num_layers * S * cfg.num_heads
+                          * cfg.head_dim)
+    n_bytes = TRAIN_BYTES_PER_PARAM * n_params
+    rec = dict(batch=B, seq=S, fresh_process=fresh, steps=out["step"],
+               losses=out["losses"], step_ms_each=out["step_ms"],
+               step_ms=step_ms, trained_tok_per_s=tokens / step_ms * 1e3,
+               peak_allocated_bytes=out["peak_allocated_bytes"],
+               peak_reserved_bytes=out["peak_reserved_bytes"],
+               flops_per_step=flops, bytes_per_step=n_bytes,
+               flops_bound_ms=flops / BF16_PEAK_FLOPS * 1e3,
+               bytes_bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, wall_s=wall)
+    rec["bound_ms"] = max(rec["flops_bound_ms"], rec["bytes_bound_ms"])
+    rec["bound_by"] = ("bytes" if rec["bytes_bound_ms"]
+                       >= rec["flops_bound_ms"] else "operations")
+    del out
+    torch.cuda.empty_cache()
+    check(rec["steps"] == TRAIN_STEPS, f"launch.train ran {rec['steps']} "
+          f"steps at B={B} S={S}")
+    check(all(np.isfinite(rec["losses"])), f"losses {rec['losses']}")
+    # at init the loss is about ln(vocab) (the reference's own test holds
+    # it in (2, 12) at vocab 512); `init_losses` pins it at this depth
+    ln_vocab = math.log(cfg.vocab_size)
+    check(2.0 < rec["losses"][0] < ln_vocab + 2.0,
+          f"the first loss {rec['losses'][0]} at B={B} S={S} is not in "
+          f"(2, ln(vocab) + 2)")
+    return rec, n_params
+
+
+def lm_train_full_width(torch, np, card):
+    """(b) llama3.2-3b at its published widths in bf16 through
+    `launch.train`'s loop: a quick gate in process at B = 4, S = 128,
+    then the training run at S = 2048 and the largest B of TRAIN_BATCHES
+    whose peak, probed at 2 and 4 layers, extrapolates to under TRAIN_FIT
+    of the card, in a fresh process (`train_run`). Every loss finite; the
+    quick run's first loss within 0.05 of the same weights' f32 loss on
+    its batch."""
+    from repro_torch.configs import ARCHS
+    total = torch.cuda.get_device_properties(0).total_memory
+    rec = {"arch": LM_ARCH, "dtype": ARCHS[LM_ARCH].dtype,
+           "card_bytes": total,
+           "allocated_before_bytes": torch.cuda.memory_allocated()}
+    rec["probe_quick"] = probe_peak(torch, np, *TRAIN_QUICK)
+    check(rec["probe_quick"]["predicted_peak_bytes"] < 0.95 * total,
+          f"{LM_ARCH} training would need ~"
+          f"{rec['probe_quick']['predicted_peak_bytes'] / 2**30:.1f} GiB")
+    for B in TRAIN_BATCHES:
+        probe = probe_peak(torch, np, B, TRAIN_SEQ)
+        if probe["predicted_peak_bytes"] < TRAIN_FIT * total:
+            break
+    else:
+        check(False, f"{LM_ARCH} at S={TRAIN_SEQ} fits no batch")
+    rec["probe_run"] = probe
+    rec["init_loss"] = init_losses(torch, *TRAIN_QUICK)
+    rec["init_loss"]["ln_vocab"] = math.log(ARCHS[LM_ARCH].vocab_size)
+    print(json.dumps({"lm_train_init_loss": rec["init_loss"]}), flush=True)
+    rec["quick"], n_params = train_run(torch, np, *TRAIN_QUICK)
+    rec["run"], _ = train_run(torch, np, B, TRAIN_SEQ, fresh=True)
+    rec["params"] = n_params
+    for key, probe in (("quick", rec["probe_quick"]), ("run", probe)):
+        r = rec[key]
+        print(f"{LM_ARCH} bf16 training, B={r['batch']} S={r['seq']}: a "
+              f"step {r['step_ms']:.2f} ms (median of steps 2-"
+              f"{TRAIN_STEPS}), least time {r['bound_ms']:.2f} ms "
+              f"({r['bound_by']}); {r['trained_tok_per_s']:.0f} tok/s; "
+              f"peak {r['peak_allocated_bytes'] / 1e9:.2f} GB (predicted "
+              f"{probe['predicted_peak_bytes'] / 1e9:.2f}) on {card}",
+              flush=True)
+    print(json.dumps({"lm_train_full_width": rec}), flush=True)
+    first = rec["quick"]["losses"][0]
+    diff = abs(first - rec["init_loss"]["float32"])
+    check(diff <= TRAIN_TOL["init_loss_bf16_vs_f32"],
+          f"the first bf16 loss {first} is {diff} from the same weights' "
+          f"f32 loss {rec['init_loss']['float32']}")
+    return rec
+
+
+def lm_train_resume(torch, np):
+    """(c) reduced llama through `launch.train` on the card: 4 steps
+    straight with a checkpoint every 2, then, its step-4 checkpoint
+    deleted, `--resume` from step 2 for 2 more; parameters and every
+    state tensor within 1e-6 (cuBLAS and the embedding's backward need not
+    be bitwise deterministic; the CPU test holds the two bitwise)."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.launch import train
+    ck = ROOT / "build" / "chip_smoke" / "train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    base = ["--reduced", "--steps", "4", "--batch", "2", "--seq", "32",
+            "--log-every", "1", "--ckpt-dir", str(ck)]
+    straight = train.main(base + ["--ckpt-every", "2"])
+    shutil.rmtree(ck / "step_4")
+    check(ckpt.latest_step(ck) == 2, "no step-2 checkpoint to resume from")
+    resumed = train.main(base + ["--resume"])
+    check(resumed["step"] == straight["step"] == 4
+          and len(resumed["losses"]) == 2,
+          "the resume gate did not run 4 steps, then 2 from step 2")
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], f"{path}/{k}")
+        else:
+            yield path, tree
+
+    a = dict(leaves(straight["opt_state"]))
+    b = dict(leaves(resumed["opt_state"]))
+    a.update(("param/" + n, p) for n, p in
+             straight["model"].named_parameters())
+    b.update(("param/" + n, p) for n, p in
+             resumed["model"].named_parameters())
+    check(set(a) == set(b), "the resumed state has other leaves")
+    worst = 0.0
+    for k in a:
+        check(a[k].dtype == b[k].dtype and a[k].device.type == "cuda",
+              f"{k}: {a[k].dtype} on {a[k].device}, resumed {b[k].dtype}")
+        worst = max(worst, float((a[k].detach().double()
+                                  - b[k].detach().double()).abs()
+                                 .max()))
+    check(worst <= TRAIN_TOL["resume"],
+          f"resumed run differs from the straight one by {worst}")
+    return {"losses_straight": straight["losses"],
+            "losses_resumed": straight["losses"][:2] + resumed["losses"],
+            "max_abs_err": worst, "leaves": len(a),
+            "bitwise": worst == 0.0}
+
+
+def lm_train_example(torch, np):
+    """(d) examples/preprocess_and_train_torch.py for 12 steps on the card,
+    the launch counts set to 0 just before and read just after: the FIR,
+    STFT and fused-tail kernels must have launched. Then the example's
+    first step again, uncounted, held against the port's plain versions
+    on the CPU: its two_phase result (`against_cpu`: equal masks, cleaned
+    audio within 2e-4) and its featurising STFT's power on the 8 chunks
+    it drew, the card's cleaned audio into both (the STFT tolerance)."""
+    import runpy
+
+    from repro_torch import kernels
+    from repro_torch.configs import SERF_AUDIO
+    from repro_torch.core.plans import Preprocessor
+    example = runpy.run_path(str(ROOT / "examples" /
+                                 "preprocess_and_train_torch.py"))
+    kernels.reset_launches()
+    out = example["main"](["--steps", "12"])
+    counts = kernels.launches()
+    for n in ("fir_hpf", "stft_dft", "fused_tail"):
+        check(counts[n] > 0, f"the example never launched {n}")
+    check(all(np.isfinite(out["losses"])), f"losses {out['losses']}")
+
+    lc, _ = example["minute"](1)
+    cpu_pre = Preprocessor(SERF_AUDIO, plan="two_phase", device="cpu")
+    gpu = Preprocessor(SERF_AUDIO, plan="two_phase", device="cuda")(lc)
+    cpu = cpu_pre(lc)
+    check(gpu.n_kept > 0, "the example's first minute kept no chunk")
+    cleaned_err = against_cpu(torch, np, "the example's step 1", gpu, cpu,
+                              cpu_pre.graph, lc)
+    # the chunks the example's first step drew (its RandomState(0))
+    idx = np.random.RandomState(0).choice(gpu.n_kept, size=8)
+    got = example["spectrogram"](SERF_AUDIO, gpu.cleaned[idx], "cuda")
+    want = example["spectrogram"](SERF_AUDIO, gpu.cleaned[idx], "cpu")
+    stft_err, ok = compare(torch, got.cpu(), want, *TOL["stft_dft"])
+    check(ok, f"the example's spectrogram differs from the plain STFT "
+              f"(max |err| {stft_err:.3g})")
+    return {"launches": counts, "steps_per_s": out["steps_per_s"],
+            "losses": out["losses"], "step1_kept": gpu.n_kept,
+            "step1_cleaned_max_abs_err": cleaned_err,
+            "step1_spectrogram_shape": list(got.shape),
+            "step1_spectrogram_max_abs_err": stft_err}
+
+
+def lm_train(torch, np, card):
+    """Phase 7: training on the card. (a)-(c) run no hand kernel (the
+    counts must stay 0); (d) the example drives three. Returns the
+    example's run ({"launches": ...}) for the kernels' line."""
+    from repro_torch import kernels
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    rec = {"reduced_card_vs_cpu": lm_train_reduced(torch, np)}
+    print(json.dumps({"lm_train_reduced_card_vs_cpu":
+                      rec["reduced_card_vs_cpu"]}), flush=True)
+    rec["full_width_bf16"] = lm_train_full_width(torch, np, card)
+    rec["resume"] = lm_train_resume(torch, np)
+    launched = kernels.launches()
+    check(not any(launched.values()),
+          f"a hand kernel launched on the LM training path: {launched}")
+    rec["example"] = lm_train_example(torch, np)
+    rec["wall_s"] = time.perf_counter() - t0
+    print(f"lm_train: phase wall {rec['wall_s']:.1f} s", flush=True)
+    print(card, flush=True)
+    print(json.dumps({"lm_train": rec}), flush=True)
+    return rec["example"]
+
+
 # ------------------------------------------------------------------- main
 
 def main():
@@ -2415,6 +2862,7 @@ def main():
         results = kernel_checks(torch, np, timer, peak_flops)
         runs = main_path(torch, np, card_line)
         lm_serve(torch, np, timer, card_line)
+        runs["preprocess_and_train_torch"] = lm_train(torch, np, card_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

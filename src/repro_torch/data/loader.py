@@ -12,13 +12,16 @@ reference package).
     leaves its lease to expire and the queue redelivers. Its `lease_items`
     is the paper's Table 7 `max_queue_size` knob: ids leased per
     round-trip.
-
-The reference's `TokenLoader` feeds the LLM stack and comes with it.
+  * `TokenLoader` yields {"tokens", "targets"} LM batches of a synthetic
+    Zipf corpus (the training launcher), numpy arrays bitwise equal to the
+    reference's for the same seed and work id.
 """
 from __future__ import annotations
 
 import queue as _q
 import threading
+
+import numpy as np
 
 from repro_torch.data import synthetic
 from repro_torch.data.queue import WorkQueue
@@ -157,3 +160,23 @@ def audio_shard_pool(seed=0, n_batches=100, batch_long_chunks=4, n_shards=2,
     return make_shard_pool(
         audio_batch_maker(seed, batch_long_chunks, segment_s, rate),
         n_batches, n_shards, **pool_kw)
+
+
+class TokenLoader(_PrefetchLoader):
+    """Synthetic-corpus LM batches: Zipf-distributed tokens with structure
+    (repeated n-grams) so losses move during the example training runs."""
+
+    def __init__(self, vocab_size, batch, seq_len, n_batches=10_000,
+                 seed=0, prefetch=5, start_at=0):
+        self.vocab_size = vocab_size
+
+        def make(wid):
+            rng = np.random.RandomState(seed * 99_991 + wid)
+            a = rng.zipf(1.3, size=(batch, seq_len + 1)) % vocab_size
+            # inject copyable structure: second half repeats the first
+            half = seq_len // 2
+            a[:, half:2 * half] = a[:, :half]
+            a = a.astype(np.int32)
+            return {"tokens": a[:, :-1], "targets": a[:, 1:]}
+
+        super().__init__(make, n_batches, prefetch, start_at)

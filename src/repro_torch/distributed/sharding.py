@@ -130,3 +130,26 @@ def pool_rules(n_shards, meshes=None, mode="tp", overrides=None):
     meshes = list(meshes)
     return [ShardingRules(meshes[j % len(meshes)], mode=mode,
                           overrides=overrides) for j in range(n_shards)]
+
+
+def _is_spec_leaf(v):
+    """A spec leaf is a (possibly empty) tuple of logical names/None;
+    tuples of tuples (e.g. xLSTM state tuples) recurse instead."""
+    return isinstance(v, tuple) and all(
+        e is None or isinstance(e, str) for e in v)
+
+
+def tree_shardings(rules: ShardingRules, spec_tree):
+    """Map a tree (dicts, lists, tuples) of logical-axis tuples to
+    placements: None without a mesh, as in the reference."""
+    if rules.mesh is None:
+        return None
+
+    def walk(t):
+        if _is_spec_leaf(t):
+            return rules.sharding(*t)
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return type(t)(walk(v) for v in t)
+
+    return walk(spec_tree)

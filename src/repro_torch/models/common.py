@@ -22,8 +22,9 @@ def dtype_of(cfg) -> torch.dtype:
 
 
 def param(t) -> nn.Parameter:
-    """A model parameter: inference only until training is ported, so it
-    asks for no gradient."""
+    """A model parameter. It asks for no gradient, so serving records no
+    autograd graph; `train.train_step.init_train_state` turns gradients on
+    for the whole model (`model.requires_grad_(True)`)."""
     return nn.Parameter(t, requires_grad=False)
 
 

@@ -13,8 +13,11 @@ functionally).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models.common import apply_norm, apply_rope, make_norm_params
@@ -194,18 +197,28 @@ def stacked_specs(layer_specs):
     return (None,) + tuple(layer_specs)
 
 
+def checkpointed(fn, *args, **kwargs):
+    """`fn(*args, **kwargs)`, its activations recomputed in the backward
+    pass (`torch.utils.checkpoint`, the reference's `jax.checkpoint`) when
+    autograd records; a plain call otherwise (serving, `no_grad`)."""
+    if not torch.is_grad_enabled():
+        return fn(*args, **kwargs)
+    return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+
 def run_stack(cfg, layers, x, positions, rules, *, causal=True,
               prefix_len=0, enc_out=None, enc_positions=None, remat=True):
     """Every layer in turn. Returns (x, moe aux averaged over the layers).
 
-    `remat` (the reference's rematerialisation in the backward pass) is a
-    training concern: accepted and ignored."""
+    With `remat` each layer is rematerialised in the backward pass, as the
+    reference checkpoints its scan body: only the layer inputs are kept."""
     aux_sum = None
+    layer = functools.partial(apply_dense_layer, causal=causal,
+                              prefix_len=prefix_len, enc_out=enc_out,
+                              enc_positions=enc_positions)
     for p in layers:
-        x, aux, _ = apply_dense_layer(cfg, p, x, positions, rules,
-                                      causal=causal, prefix_len=prefix_len,
-                                      enc_out=enc_out,
-                                      enc_positions=enc_positions)
+        x, aux, _ = (checkpointed(layer, cfg, p, x, positions, rules)
+                     if remat else layer(cfg, p, x, positions, rules))
         if aux is not None:
             aux_sum = aux if aux_sum is None else {
                 k: aux_sum[k] + aux[k] for k in aux}

@@ -367,18 +367,22 @@ class HybridLM(BaseModel):
                                               causal=True)
             for i in layer_ids:
                 p = self.layers[i]
-                h = apply_norm(cfg, p["ln"], x)
                 if collect:
+                    h = apply_norm(cfg, p["ln"], x)
                     o, cache = apply_mamba(cfg, p["mamba"], h, rules,
                                            return_cache=True)
                     mamba.append(cache)
-                else:
-                    o = apply_mamba(cfg, p["mamba"], h, rules)
-                x = x + o
+                    x = x + o
+                else:       # rematerialised, as the reference's scan body
+                    x = T.checkpointed(self._mamba_layer, p, x, rules)
         if collect:
             return x, {"k": torch.stack(ks), "v": torch.stack(vs),
                        "mamba": _stack(mamba)}
         return x, None
+
+    def _mamba_layer(self, p, x, rules):
+        return x + apply_mamba(self.cfg, p["mamba"],
+                               apply_norm(self.cfg, p["ln"], x), rules)
 
     def _embed(self, batch, rules):
         tokens = self._tensor(batch["tokens"])

@@ -693,3 +693,62 @@ def test_lm_full_width_zamba2_bf16_serving_deterministic(card):
     np.testing.assert_array_equal(a, b)
     assert a.shape == (4, 16) and (a >= 0).all()
     assert (a < lm_cfg.vocab_size).all()
+
+
+# ------------------------------------------------ language-model training
+
+@pytest.mark.parametrize("arch,quantize,microbatches,compress", [
+    ("llama3.2-3b", False, 1, False),
+    ("granite-moe-3b-a800m", True, 1, False),
+    ("llama3.2-3b", False, 4, True)])
+def test_lm_train_step_on_card_matches_cpu(card, arch, quantize,
+                                           microbatches, compress):
+    """One `make_train_step` step from the same parameters (f32, TF32 off)
+    on the CPU and the card: loss rtol 1e-5, grad norm 1e-4, every
+    parameter within 1e-5 except where the gradient Adam saw is below 1e-4
+    of its leaf's largest on either side (read from m, (1 - b1) x that
+    gradient after one step), where sign(g) may differ: 2 lr apart."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.distributed.sharding import NULL_RULES
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train import compression as C
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_step import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lm_cfg = dataclasses.replace(reduced(ARCHS[arch]), dtype="float32")
+    cpu = build_model(lm_cfg, device="cpu")
+    gpu = build_model(lm_cfg, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    opt_cfg = O.OptConfig(lr=1e-3, warmup_steps=1, decay_steps=10,
+                          quantize_state=quantize)
+    batch = _lm_inputs(lm_cfg, B=2 * microbatches)
+    outs = []
+    for m in (cpu, gpu):
+        m.requires_grad_(True)
+        params = dict(m.named_parameters())
+        state = O.init_opt_state(opt_cfg, params)
+        if compress:
+            state["ef_residual"] = C.init_residuals(params)
+        outs.append(make_train_step(m, NULL_RULES, opt_cfg, microbatches,
+                                    compress)(state, batch))
+    (cs, cmet), (gs, gmet) = outs
+    assert gs["step"].device.type == "cuda"
+    np.testing.assert_allclose(float(gmet["loss"]), float(cmet["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(gmet["grad_norm"]),
+                               float(cmet["grad_norm"]), rtol=1e-4)
+    lr = float(cmet["lr"])
+
+    def moment(m):
+        if isinstance(m, dict):
+            m = C.dequantize_rowwise_int8(m["codes"], m["scale"])
+        return m.cpu()
+
+    gparams = dict(gpu.named_parameters())
+    for name, p in cpu.named_parameters():
+        mc, mg = moment(cs["m"][name]), moment(gs["m"][name])
+        small = ((mc.abs() < 1e-4 * mc.abs().max())
+                 | (mg.abs() < 1e-4 * mg.abs().max()))
+        err = (gparams[name].detach().cpu() - p.detach()).abs()
+        allowed = 1e-5 * (1 + p.detach().abs()) + 2 * lr * small
+        assert bool((err <= allowed).all()), (name, float(err.max()))

@@ -7,6 +7,7 @@ import ast
 import dataclasses
 import json
 import re
+import runpy
 from pathlib import Path
 
 import numpy as np
@@ -23,7 +24,10 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "fir_variants.py",
     ROOT / "scripts" / "mmse_variants.py",
     ROOT / "scripts" / "dft_variants.py",
-    ROOT / "scripts" / "lm_profile.py"]
+    ROOT / "scripts" / "lm_profile.py",
+    ROOT / "scripts" / "train_profile.py",
+    ROOT / "scripts" / "init_loss_depth.py",
+    ROOT / "examples" / "preprocess_and_train_torch.py"]
 
 
 def _imported_roots(path):
@@ -84,8 +88,10 @@ def _entry_points():
     from repro_torch.core.plans import (CachedPlan, FusedPlan, Preprocessor,
                                         ShardedPlan, TwoPhasePlan)
     from repro_torch.device import resolve_device
-    from repro_torch.launch import preprocess, serve
+    from repro_torch.launch import preprocess, serve, train
     from repro_torch.serve import PreprocessService, WorkerPool
+    example = runpy.run_path(
+        str(ROOT / "examples" / "preprocess_and_train_torch.py"))
     return {
         "resolve_device": lambda: resolve_device(),
         "Preprocessor": lambda: Preprocessor(cfg),
@@ -101,6 +107,9 @@ def _entry_points():
         "WorkerPool": lambda: WorkerPool(cfg, transport="inproc"),
         "PreprocessService": lambda: PreprocessService(cfg),
         "launch.serve": lambda: serve.main(["--audio"]),
+        "launch.train": lambda: train.main(["--reduced"]),
+        "preprocess_and_train_torch": lambda: example["main"](["--steps",
+                                                               "1"]),
     }
 
 
@@ -109,7 +118,9 @@ def _entry_points():
                                   "ShardedPlan", "Preprocessor sharded proc",
                                   "launch.preprocess",
                                   "launch.preprocess sharded", "WorkerPool",
-                                  "PreprocessService", "launch.serve"])
+                                  "PreprocessService", "launch.serve",
+                                  "launch.train",
+                                  "preprocess_and_train_torch"])
 def test_entry_points_raise_without_a_card(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; this checks the CPU-only case")
