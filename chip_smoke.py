@@ -148,10 +148,23 @@ outside a checkout of the repo. Phases, any failure exits non-zero:
      and fused-tail kernels must have launched ((a)-(c) launch none); then
      its first step again, uncounted, against the port's CPU run (masks,
      cleaned audio 2e-4) and its featurising STFT against the plain one.
-  8. one JSON line with every kernel's numbers (its launches summed over
-     the main-path runs, the workers' and the example's included), the
-     whole run's wall, then the card's line and the result line `{"ok":
-     true, "device": {...}}` last.
+  8. mesh: `make_local_mesh()` (a one-rank nccl group, a (1, 1) ("data",
+     "model") mesh) and `ShardingRules` over it; (a) two_phase on batch 0
+     of the seed-25 stream with and without the rules: masks equal,
+     cleaned audio bitwise or within 2e-4, the same FIR / STFT /
+     fused-tail launches (each > 0) in one counted call each, then 3 timed
+     calls each in turns; (b) one reduced llama3.2-3b f32 train step with
+     the state as DTensors on the mesh against the same step without one:
+     loss and parameters within 1e-6; (d) `ag_matmul` on the mesh against
+     `torch.matmul` within 1e-5; (c) `launch.train --distribute` (DTensor
+     state) at llama3.2-3b full width in bf16, B = 4, S = 128, its step ms
+     printed beside the lm_train phase's quick run (the same loop with
+     plain tensors on the same kind of mesh) and that run's spread; the
+     phase's wall.
+  9. one JSON line with every kernel's numbers (its launches summed over
+     the main-path runs, the workers', the example's and the mesh run's
+     included), the whole run's wall, then the card's line and the result
+     line `{"ok": true, "device": {...}}` last.
 
 It imports only `repro_torch`, `torch` and numpy.
 """
@@ -615,6 +628,7 @@ def mask_margins(torch, graph, audio):
     chunk's margin to it, for reporting a mask that differs between the
     card and the CPU."""
     from repro_torch.core import indices as I
+    from repro_torch.distributed.sharding import NULL_RULES
     cfg = graph.cfg
     thresholds15 = {"psd": cfg.rain_psd_min,
                     "flatness": cfg.rain_flatness_min,
@@ -625,7 +639,7 @@ def mask_margins(torch, graph, audio):
     state = {"wave": torch.as_tensor(audio)}
     out = {}
     for st in graph.stages[:graph._cut()]:
-        state = st.apply(state)
+        state = st.apply(state, NULL_RULES)
         if st.name == "cicada_bandstop":           # 15 s chunks
             for k, thr in thresholds15.items():
                 out[k] = {"threshold": thr, "margin":
@@ -2814,7 +2828,195 @@ def lm_train(torch, np, card):
     print(f"lm_train: phase wall {rec['wall_s']:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"lm_train": rec}), flush=True)
-    return rec["example"]
+    return rec
+
+
+# ------------------------------------------------------------- the mesh phase
+
+MESH_TOL = {"cleaned": 2e-4, "loss": 1e-6, "params": 1e-6,
+            "ag_matmul": 1e-5}
+MESH_PASSES = 3                 # timed passes of batch 0, the cells in turns
+
+
+def mesh_preprocess(torch, np, rules):
+    """(a) two_phase on batch 0 of the seed-25 stream without a mesh and
+    with `rules` over the one-rank mesh: masks equal, cleaned audio
+    bitwise or within 2e-4, the same FIR / STFT / fused-tail launches
+    (each > 0) in one counted call of each; then MESH_PASSES timed calls
+    of each in turns."""
+    from repro_torch import kernels
+    from repro_torch.configs import SERF_AUDIO
+    from repro_torch.core.plans import Preprocessor
+    from repro_torch.data.loader import audio_batch_maker
+    chunks, _ = audio_batch_maker(seed=25, batch_long_chunks=4)(0)
+    cells = {"no_mesh": Preprocessor(SERF_AUDIO, plan="two_phase"),
+             "mesh": Preprocessor(SERF_AUDIO, rules, plan="two_phase")}
+    check(cells["mesh"].device.type == "cuda",
+          "the meshed Preprocessor is not on the card")
+    out, counts = {}, {}
+    for label, pre in cells.items():
+        pre(chunks)                               # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out[label] = pre(chunks)
+        torch.cuda.synchronize()
+        counts[label] = kernels.launches()
+    walls = {label: [] for label in cells}
+    for _ in range(MESH_PASSES):
+        for label, pre in cells.items():
+            t0 = time.perf_counter()
+            pre(chunks)
+            torch.cuda.synchronize()
+            walls[label].append((time.perf_counter() - t0) * 1e3)
+    a, b = out["no_mesh"], out["mesh"]
+    for m in ("keep", "rain", "silence", "cicada15"):
+        check(torch.equal(getattr(a.det, m).cpu(), getattr(b.det, m).cpu()),
+              f"mesh: the {m} mask differs from the unmeshed run")
+    check(a.cleaned.shape == b.cleaned.shape and b.n_kept > 0,
+          f"mesh: kept {b.n_kept} rows, unmeshed {a.n_kept}")
+    err = float(np.abs(a.cleaned - b.cleaned).max())
+    check(err <= MESH_TOL["cleaned"], f"mesh: cleaned audio {err:.3g} "
+          f"from the unmeshed run")
+    for n in ("fir_hpf", "stft_dft", "fused_tail"):
+        check(counts["mesh"][n] == counts["no_mesh"][n] > 0,
+              f"mesh: {n} launched {counts['mesh'][n]} times, unmeshed "
+              f"{counts['no_mesh'][n]}")
+    return {"launches": counts["mesh"], "no_mesh_launches":
+            counts["no_mesh"], "kept": b.n_kept,
+            "chunks": int(b.det.keep.numel()),
+            "bitwise": bool(np.array_equal(a.cleaned, b.cleaned)),
+            "cleaned_max_abs_err": err,
+            "batch_ms": {k: {"median": statistics.median(v), "min": min(v),
+                             "max": max(v)} for k, v in walls.items()}}
+
+
+def mesh_train_step(torch, np, rules):
+    """(b) one reduced llama3.2-3b f32 step with DTensor state on the
+    one-device mesh (`train_state(..., distribute=True)`) against the same
+    step without a mesh: loss and parameters within 1e-6."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.distributed.sharding import NULL_RULES, is_dtensor
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import make_train_step, train_state
+    cfg = dataclasses.replace(reduced(ARCHS[LM_ARCH]), dtype="float32")
+    opt = OptConfig(lr=TRAIN_LR)
+    batch = lm_inputs(np, cfg, 4, 32)
+    models, metrics = {}, {}
+    for label, r, dist in (("no_mesh", NULL_RULES, False),
+                           ("mesh", rules, True)):
+        m = build_model(cfg, device="cuda")       # the same seed-0 draw
+        state = train_state(m, opt, rules=r, distribute=dist)
+        _, metrics[label] = make_train_step(m, r, opt)(state, batch)
+        models[label] = m
+    p_mesh = dict(models["mesh"].named_parameters())
+    check(all(is_dtensor(p) for p in p_mesh.values()),
+          "mesh: the train state is not DTensors")
+    loss_err = abs(float(metrics["mesh"]["loss"])
+                   - float(metrics["no_mesh"]["loss"]))
+    param_err = max(
+        float((p.detach().float()
+               - p_mesh[n].detach().full_tensor().float()).abs().max())
+        for n, p in models["no_mesh"].named_parameters())
+    check(loss_err <= MESH_TOL["loss"], f"mesh: train loss {loss_err:.3g} "
+          f"from the unmeshed step")
+    check(param_err <= MESH_TOL["params"], f"mesh: parameters "
+          f"{param_err:.3g} from the unmeshed step")
+    return {"loss": float(metrics["mesh"]["loss"]),
+            "loss_abs_err": loss_err, "params_max_abs_err": param_err}
+
+
+def mesh_launcher(torch, np, quick):
+    """(c) `launch.train` through the one-device mesh at llama3.2-3b full
+    width in bf16 at the quick gate's B, S, with the state as DTensors
+    (`--distribute`); its step ms beside the lm_train phase's quick run
+    (the same loop, the state plain tensors on the same mesh)."""
+    from repro_torch.launch import train
+    B, S = TRAIN_QUICK
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = train.main(["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS),
+                      "--batch", str(B), "--seq", str(S), "--distribute"])
+    check(out["step"] == TRAIN_STEPS and all(np.isfinite(out["losses"])),
+          f"mesh: launch.train --distribute: {out['losses']}")
+    rec = {"batch": B, "seq": S, "losses": out["losses"],
+           "step_ms_each": out["step_ms"],
+           "step_ms": statistics.median(out["step_ms"][1:]),
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+    plain = quick["step_ms_each"][1:]
+    rec["no_mesh"] = {"step_ms": quick["step_ms"], "min": min(plain),
+                      "max": max(plain), "losses": quick["losses"]}
+    rec["over_no_mesh"] = rec["step_ms"] / quick["step_ms"]
+    rec["beyond_spread"] = rec["step_ms"] > max(plain)
+    del out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_ag_matmul(torch, rules):
+    """(d) ag_matmul on the one-rank mesh against torch.matmul."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.distributed.collective_matmul import ag_matmul
+    g = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn(512, 1024, generator=g, device="cuda")
+    w = torch.randn(1024, 768, generator=g, device="cuda")
+    mesh = rules.mesh
+    xd = distribute_tensor(x, mesh, [Replicate(), Shard(0)],
+                           src_data_rank=None)
+    wd = distribute_tensor(w, mesh, [Replicate(), Shard(1)],
+                           src_data_rank=None)
+    y = ag_matmul(xd, wd, mesh, axis="model")
+    err = float((y.full_tensor() - x @ w).abs().max())
+    check(err <= MESH_TOL["ag_matmul"], f"mesh: ag_matmul {err:.3g} from "
+          f"torch.matmul")
+    return {"shape": [512, 1024, 768], "max_abs_err": err,
+            "placements": [str(p) for p in y.placements]}
+
+
+def mesh_phase(torch, np, card, quick):
+    """Phase 8: the mesh on the one card. A one-rank nccl group and its
+    (1, 1) ("data", "model") mesh from `make_local_mesh()`; (a) the
+    preprocessing main path under `ShardingRules(mesh)`, (b) a train step
+    with DTensor state, (c) the launcher with DTensor state at full width,
+    (d) ag_matmul. The rules' spec, placements and fingerprint are the
+    reference's for such a mesh (every axis of size 1). Returns (a)'s run
+    ({"launches": ...}) for the kernels' line."""
+    import torch.distributed as tdist
+
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.mesh import make_local_mesh
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh = make_local_mesh()
+    try:
+        rules = ShardingRules(mesh)
+        check(tuple(mesh.mesh.shape) == (1, 1) and rules.spec(
+            "chunks", "vocab") == (("data", "model"), "model"),
+            f"mesh: {mesh} gives {rules.spec('chunks', 'vocab')}")
+        rec = {"mesh": [list(mesh.mesh.shape), list(mesh.mesh_dim_names)],
+               "backend": tdist.get_backend(),
+               "fingerprint": str(rules.fingerprint[1])}
+        rec["preprocess"] = mesh_preprocess(torch, np, rules)
+        rec["train_step"] = mesh_train_step(torch, np, rules)
+        rec["ag_matmul"] = mesh_ag_matmul(torch, rules)
+        rec["launcher"] = mesh_launcher(torch, np, quick)
+    finally:
+        tdist.destroy_process_group()
+    rec["wall_s"] = time.perf_counter() - t0
+    la = rec["launcher"]
+    print(f"mesh: launch.train {LM_ARCH} bf16 B={la['batch']} "
+          f"S={la['seq']} with DTensor state on the one-device mesh: a "
+          f"step {la['step_ms']:.2f} ms (median of steps 2-{TRAIN_STEPS}); "
+          f"plain tensors (lm_train) {la['no_mesh']['step_ms']:.2f} ms "
+          f"(steps 2-{TRAIN_STEPS} {la['no_mesh']['min']:.2f}-"
+          f"{la['no_mesh']['max']:.2f}) on {card}", flush=True)
+    pp = rec["preprocess"]["batch_ms"]
+    print(f"mesh: two_phase batch 0 {pp['mesh']['median']:.2f} ms under "
+          f"the mesh, {pp['no_mesh']['median']:.2f} ms without (median of "
+          f"{MESH_PASSES}); phase wall {rec['wall_s']:.1f} s", flush=True)
+    print(json.dumps({"mesh": rec}), flush=True)
+    return rec["preprocess"]
 
 
 # ------------------------------------------------------------------- main
@@ -2862,7 +3064,10 @@ def main():
         results = kernel_checks(torch, np, timer, peak_flops)
         runs = main_path(torch, np, card_line)
         lm_serve(torch, np, timer, card_line)
-        runs["preprocess_and_train_torch"] = lm_train(torch, np, card_line)
+        train_rec = lm_train(torch, np, card_line)
+        runs["preprocess_and_train_torch"] = train_rec["example"]
+        runs["mesh_two_phase"] = mesh_phase(
+            torch, np, card_line, train_rec["full_width_bf16"]["quick"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

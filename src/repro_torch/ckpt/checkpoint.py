@@ -12,8 +12,13 @@ A tree is nested dicts, lists and tuples whose leaves are tensors or
 arrays (None is an empty subtree). A leaf's path joins its dict keys and
 sequence indices with "/" (dict keys in sorted order, as JAX flattens
 them), and its file name joins them with "__": `{"a": [x]}` saves `a/0`
-as `a__0.npy`. The reference's restore-time resharding (`shardings=`)
-comes with the port's device-mesh slice.
+as `a__0.npy`.
+
+A DTensor leaf is saved whole: `save` gathers it (`full_tensor()`, a
+collective every rank joins) and rank 0 alone writes. `restore(...,
+shardings=)` places each leaf by its DTensor placements (a `Placements`
+from `ShardingRules.sharding`, which carries its mesh), which is how an
+elastic restart re-shards a checkpoint onto another mesh.
 """
 from __future__ import annotations
 
@@ -26,6 +31,9 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import is_dtensor, tree_map
 
 _SEP = "/"
 
@@ -57,7 +65,10 @@ def _rebuild(like, load, path=()):
 
 def _to_host(leaf) -> np.ndarray:
     """A copy of the leaf in host memory: a later in-place update of the
-    caller's tensor cannot reach an asynchronous save."""
+    caller's tensor cannot reach an asynchronous save. A DTensor is
+    gathered whole first."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if torch.is_tensor(leaf):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -77,12 +88,22 @@ def _to_tensor(arr: np.ndarray, logical_dtype: str) -> torch.Tensor:
 
 def save(directory, step, tree, meta=None, async_save=False):
     """Checkpoint `tree` at `directory/step_<step>`. Returns a handle with
-    .wait() (a no-op for a synchronous save)."""
+    .wait() (a no-op for a synchronous save).
+
+    In a process group of more than one rank every rank calls it (the
+    DTensor leaves are gathered on all of them), rank 0 alone writes, and
+    the ranks meet at a barrier once the files are in place: at the end of
+    a synchronous save, in `wait()` of an asynchronous one."""
     directory = os.fspath(directory)
     final = os.path.join(directory, f"step_{step}")
-    os.makedirs(directory, exist_ok=True)
     # copy to the host before going asynchronous
     host = [(name, *_to_host(v)) for name, v in _leaves(tree)]
+    group = dist.is_initialized() and dist.get_world_size() > 1
+    if group and dist.get_rank() != 0:
+        if not async_save:
+            dist.barrier()
+        return _Handle(None, barrier=group)
+    os.makedirs(directory, exist_ok=True)
 
     def _write():
         tmp = tempfile.mkdtemp(prefix=f"step_{step}.tmp-", dir=directory)
@@ -106,18 +127,24 @@ def save(directory, step, tree, meta=None, async_save=False):
     if async_save:
         t = threading.Thread(target=_write, daemon=True)
         t.start()
-        return _Handle(t)
+        return _Handle(t, barrier=group)
     _write()
+    if group:
+        dist.barrier()
     return _Handle(None)
 
 
 class _Handle:
-    def __init__(self, thread):
+    def __init__(self, thread, barrier=False):
         self._thread = thread
+        self._barrier = barrier
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
 
 
 def _steps(directory):
@@ -132,13 +159,17 @@ def latest_step(directory):
     return steps[-1] if steps else None
 
 
-def restore(directory, step, like=None, verify_crc=True):
+def restore(directory, step, like=None, shardings=None, verify_crc=True):
     """Restore a checkpoint: (tree, meta).
 
     like: a tree giving the structure; each leaf comes back as a tensor on
     the device of its `like` leaf (a numpy `like` leaf gives a numpy
     array), in the dtype it was saved with. like=None returns a flat
-    {leaf_path: CPU tensor} dict."""
+    {leaf_path: CPU tensor} dict.
+    shardings: None, or a tree matching `like` whose entries are
+    `Placements` (None or a 0-d leaf: a plain tensor): each leaf becomes a
+    DTensor with them, on their mesh, each rank keeping its block. This is
+    how a restore re-shards onto another mesh (elastic restart)."""
     path = os.path.join(os.fspath(directory), f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -167,7 +198,11 @@ def restore(directory, step, like=None, verify_crc=True):
             return t.to(leaf.device)
         return t.numpy()
 
-    return _rebuild(like, place), manifest["meta"]
+    tree = _rebuild(like, place)
+    if shardings is not None:
+        tree = tree_map(lambda t, sh: t if sh is None or t.ndim == 0
+                        else sh.place(t), tree, shardings)
+    return tree, manifest["meta"]
 
 
 def prune_old(directory, keep=3):

@@ -12,7 +12,10 @@ at construction time, before any audio runs.
   * `PipelineGraph` — validates the chain, records `removal_point` markers
     and exposes `detection` (up to the first removal point), the survivor
     phase (`tail`, `tail_indexed`, `tail_indexed_fused`), the whole chain
-    with removed chunks masked (`fused`), and its `fingerprint`.
+    with removed chunks masked (`fused`), and its `fingerprint`. Each entry
+    point takes the sharding `rules` (`NULL_RULES` by default); under rules
+    with a mesh it runs the rank's rows and returns DTensors (section
+    "mesh" below).
 
 State fields carried between stages:
   wave            (B, S) mono, or (B, C, S) stereo before `to_mono`
@@ -35,6 +38,7 @@ import torch
 from repro_torch.core import detect as D
 from repro_torch.core import indices as I
 from repro_torch.core import stages as S
+from repro_torch.distributed.sharding import NULL_RULES, whole
 from repro_torch.kernels.fused_tail import ops as fused_tail_ops
 from repro_torch.kernels.fused_tail.ref import gather_rows
 
@@ -103,7 +107,7 @@ class Stage:
     def check(self, vs: _ValidState) -> _ValidState:
         return vs
 
-    def apply(self, state: dict) -> dict:
+    def apply(self, state: dict, rules) -> dict:
         return state
 
 
@@ -132,8 +136,9 @@ class ToMono(Stage):
                 f"(got {vs.geom.channels} channel)")
         return replace(vs, geom=replace(vs.geom, channels=1))
 
-    def apply(self, state):
-        state["wave"] = S.to_mono(state["wave"])
+    def apply(self, state, rules):
+        state["wave"] = rules.constrain(S.to_mono(state["wave"]),
+                                        "chunks", None)
         return state
 
 
@@ -154,7 +159,7 @@ class Compress(Stage):
         return replace(vs, geom=replace(vs.geom,
                                         rate_hz=self.cfg.target_rate_hz))
 
-    def apply(self, state):
+    def apply(self, state, rules):
         state["wave"] = S.compress(state["wave"], self.cfg)
         return state
 
@@ -180,10 +185,11 @@ class _Split(Stage):
                                         split_s=self.target_split_s),
                        has=vs.has - {"spec", "indices"})
 
-    def apply(self, state):
+    def apply(self, state, rules):
         n = self.n_sub
         pre_samples = state["wave"].shape[1]
-        state["wave"] = S.split(state["wave"], n)
+        state["wave"] = rules.constrain(S.split(state["wave"], n),
+                                        "chunks", None)
         for k in _MASK_KEYS:
             if k in state:
                 state[k] = torch.repeat_interleave(state[k], n)
@@ -224,7 +230,7 @@ class Stft(Stage):
             raise GraphValidationError("stage 'stft' needs mono audio")
         return replace(vs, has=vs.has | {"spec", "power"})
 
-    def apply(self, state):
+    def apply(self, state, rules):
         state["spec"], state["power"] = S.stft_chunks(state["wave"], self.cfg)
         state.pop("indices", None)
         return state
@@ -239,7 +245,7 @@ class DetectRain(Stage):
         self._need(vs, "power")
         return replace(vs, has=vs.has | {"rain"})
 
-    def apply(self, state):
+    def apply(self, state, rules):
         rain = D.detect_rain(_indices(state, self.cfg), self.cfg)
         prev = state.get("rain")
         state["rain"] = rain if prev is None else (prev | rain)
@@ -256,7 +262,7 @@ class CicadaBandstop(Stage):
         self._need(vs, "spec", "power")
         return replace(vs, has=vs.has | {"cicada"})
 
-    def apply(self, state):
+    def apply(self, state, rules):
         idx = _indices(state, self.cfg)
         cicada = D.detect_cicada(idx, self.cfg)
         if "rain" in state:
@@ -275,7 +281,7 @@ class Istft(Stage):
         self._need(vs, "wave", "spec")
         return vs
 
-    def apply(self, state):
+    def apply(self, state, rules):
         state["wave"] = S.istft_chunks(state["spec"],
                                        state["wave"].shape[1], self.cfg)
         return state
@@ -291,7 +297,7 @@ class DetectSilence(Stage):
         self._need(vs, "power")
         return replace(vs, has=vs.has | {"silence"})
 
-    def apply(self, state):
+    def apply(self, state, rules):
         silence = I.snr_est(state["power"]) < self.cfg.silence_snr_threshold
         if "rain" in state:
             silence = silence & ~state["rain"]
@@ -311,7 +317,7 @@ class DetectFlux(Stage):
         self._need(vs, "power")
         return replace(vs, has=vs.has | {"silence"})
 
-    def apply(self, state):
+    def apply(self, state, rules):
         idle = D.detect_no_activity(_indices(state, self.cfg), self.cfg)
         if "rain" in state:
             idle = idle & ~state["rain"]
@@ -332,7 +338,7 @@ class RemovalPoint(Stage):
         self._need(vs, "wave")
         return _ValidState(vs.geom, frozenset({"wave"}))
 
-    def apply(self, state):
+    def apply(self, state, rules):
         n = state["wave"].shape[0]
         zeros = torch.zeros((n,), dtype=torch.bool,
                             device=state["wave"].device)
@@ -353,8 +359,9 @@ class Mmse(Stage):
             raise GraphValidationError("stage 'mmse' needs mono audio")
         return vs
 
-    def apply(self, state):
-        state["wave"] = S.mmse_denoise(state["wave"], self.cfg)
+    def apply(self, state, rules):
+        wave = rules.constrain(state["wave"], "chunks", None)
+        state["wave"] = S.mmse_denoise(wave, self.cfg)
         return state
 
 
@@ -370,8 +377,9 @@ class TailHighpass(Stage):
             raise GraphValidationError("stage 'hpf' needs mono audio")
         return vs
 
-    def apply(self, state):
-        state["wave"] = S.tail_highpass(state["wave"], self.cfg)
+    def apply(self, state, rules):
+        wave = rules.constrain(state["wave"], "chunks", None)
+        state["wave"] = S.tail_highpass(wave, self.cfg)
         return state
 
 
@@ -421,12 +429,12 @@ class PipelineGraph:
             return len(self.stages)
         return self.removal_indices[0] + 1
 
-    def _run(self, stages, state):
+    def _run(self, stages, state, rules):
         for st in stages:
-            state = st.apply(state)
+            state = st.apply(state, rules)
         return state
 
-    def _outputs(self, state) -> PipelineOutput:
+    def _outputs(self, state, rules, masked=False) -> PipelineOutput:
         wave = state["wave"]
         n = wave.shape[0]
         zeros = torch.zeros((n,), dtype=torch.bool, device=wave.device)
@@ -434,35 +442,48 @@ class PipelineGraph:
         silence = state.get("silence", zeros)
         keep = state.get("keep", ~rain & ~silence)
         cicada = state.get("cicada", zeros)
+        if masked:
+            wave = torch.where(keep[:, None], wave,
+                               torch.zeros((), dtype=wave.dtype,
+                                           device=wave.device))
+        wave, keep, rain, silence, cicada = (
+            _global_rows(t, rules) for t in (wave, keep, rain, silence,
+                                             cicada))
         stats = {
-            "n_chunks5": n,
-            "frac_rain": rain.float().mean(),
-            "frac_silence": silence.float().mean(),
-            "frac_kept": keep.float().mean(),
-            "frac_cicada15": cicada.float().mean(),
+            "n_chunks5": wave.shape[0],
+            "frac_rain": whole(rain.float().mean()),
+            "frac_silence": whole(silence.float().mean()),
+            "frac_kept": whole(keep.float().mean()),
+            "frac_cicada15": whole(cicada.float().mean()),
         }
         return PipelineOutput(wave5=wave, keep=keep, rain=rain,
                               silence=silence, cicada15=cicada, stats=stats)
 
-    def detection(self, audio) -> PipelineOutput:
+    def detection(self, audio, rules=NULL_RULES) -> PipelineOutput:
         """Phase A: everything up to and including the first removal point
         (wave5 is not yet denoised). Without a removal point this runs the
         whole chain."""
-        state = self._run(self.stages[:self._cut()], {"wave": audio})
-        return self._outputs(state)
+        state = self._run(self.stages[:self._cut()],
+                          {"wave": _local_rows(audio, rules)}, rules)
+        return self._outputs(state, rules)
 
-    def tail(self, wave):
+    def tail(self, wave, rules=NULL_RULES):
         """Phase B: the survivor stages past the first removal point,
         applied to a (compacted) chunk batch."""
-        return self._run(self.stages[self._cut():], {"wave": wave})["wave"]
+        return self._tail_rows(_local_rows(wave, rules), rules)
 
-    def tail_indexed(self, wave, idx):
+    def _tail_rows(self, rows, rules):
+        state = self._run(self.stages[self._cut():], {"wave": rows}, rules)
+        return _global_rows(state["wave"], rules)
+
+    def tail_indexed(self, wave, idx, rules=NULL_RULES):
         """Phase B with on-device compaction: gather the survivor rows
         `idx` (padded int32) out of the full pre-denoise batch, then run the
         survivor stages. Indices >= B (the scheduler's pad) give zero
-        rows."""
-        return self.tail(gather_rows(wave, idx))
-
+        rows. Under a mesh each rank gathers the rows of its block of
+        `idx` out of the whole batch."""
+        return self._tail_rows(
+            gather_rows(whole(wave), _local_rows(idx, rules)), rules)
     @property
     def fused_tail_spec(self):
         """`{"hpf": bool}` when the post-removal stage list is the
@@ -476,7 +497,7 @@ class PipelineGraph:
             return {"hpf": True}
         return None
 
-    def tail_indexed_fused(self, wave, idx):
+    def tail_indexed_fused(self, wave, idx, rules=NULL_RULES):
         """`tail_indexed` through the fused tail (gather + [HPF] + STFT +
         MMSE gain in one kernel, the iSTFT outside). Only valid when
         `fused_tail_spec` is not None."""
@@ -485,14 +506,48 @@ class PipelineGraph:
             raise GraphValidationError(
                 f"post-removal stages {self.names[self._cut():]} are not "
                 "the canonical fused tail; use tail_indexed")
-        return fused_tail_ops.fused_tail(wave, idx, self.cfg,
-                                         hpf=spec["hpf"])
+        wave = rules.constrain(whole(wave), "chunks", None)
+        return _global_rows(
+            fused_tail_ops.fused_tail(wave, _local_rows(idx, rules),
+                                      self.cfg, hpf=spec["hpf"]), rules)
 
-    def fused(self, audio) -> PipelineOutput:
+    def fused(self, audio, rules=NULL_RULES) -> PipelineOutput:
         """The whole chain on every chunk, removed chunks masked to zero in
         `wave5` but still computed: the paper's no-early-exit baseline."""
-        out = self._outputs(self._run(self.stages, {"wave": audio}))
-        masked = torch.where(out.keep[:, None], out.wave5,
-                             torch.zeros((), dtype=out.wave5.dtype,
-                                         device=out.wave5.device))
-        return replace(out, wave5=masked)
+        state = self._run(self.stages, {"wave": _local_rows(audio, rules)},
+                          rules)
+        return self._outputs(state, rules, masked=True)
+
+
+# ------------------------------------------------------------------- mesh
+# Under rules with a mesh every stage is row-local: "chunks" maps to every
+# mesh axis and samples and bins are replicated. So each entry point takes
+# the rank's block of rows, runs the chain on it on the rank's device (the
+# hand kernels on the card, their plain versions on the CPU) and wraps its
+# outputs back as DTensors with the "chunks" placements. Without a mesh
+# these are no-ops.
+
+def _chunk_placements(t, rules):
+    return rules.sharding("chunks", *([None] * (t.ndim - 1)))
+
+
+def _local_rows(x, rules):
+    """The rank's block of the rows of `x` (a DTensor, or a tensor every
+    rank holds whole): its "chunks" block. The row count must divide by
+    the mesh's size (the plans pad to it)."""
+    if rules.mesh is None:
+        return x
+    n = rules.mesh.size()
+    if x.shape[0] % n:
+        raise ValueError(f"{x.shape[0]} rows do not split evenly over a "
+                         f"mesh of {n} devices: pad to a multiple of {n}")
+    return _chunk_placements(x, rules).place(x).to_local()
+
+
+def _global_rows(t, rules):
+    """The rank's rows `t` as the DTensor they are a block of."""
+    if rules.mesh is None:
+        return t
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, rules.mesh,
+                              tuple(_chunk_placements(t, rules)))

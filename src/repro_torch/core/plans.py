@@ -69,6 +69,7 @@ per chunk at acceptance.
 from __future__ import annotations
 
 import collections
+import math
 import operator
 import os
 import threading
@@ -85,6 +86,7 @@ from repro_torch.core.graph import (GraphValidationError, PipelineGraph,
 from repro_torch.data.loader import ShardedLoader, make_shard_pool
 from repro_torch.data.queue import WorkQueue
 from repro_torch.device import resolve_device, worker_env
+from repro_torch.distributed.sharding import NULL_RULES, is_dtensor, whole
 from repro_torch.dist.data_plane import StoreDataPlane
 from repro_torch.dist.service import QueueService, pack_result, unpack_result
 from repro_torch.dist.transport import ProcTransport, TcpTransport
@@ -201,21 +203,60 @@ class _PendingTail:
     timings: dict
 
 
+def _whole_output(det: PipelineOutput) -> PipelineOutput:
+    """A phase's output with every DTensor gathered whole: what a plan
+    reads back and emits is the same on every rank."""
+    if not is_dtensor(det.keep):
+        return det
+    return replace(det, wave5=whole(det.wave5), keep=whole(det.keep),
+                   rain=whole(det.rain), silence=whole(det.silence),
+                   cicada15=whole(det.cicada15))
+
+
+def _mesh_device(rules, device):
+    """The plan's device: `device`; with none named, the CPU under a CPU
+    mesh, else the current card. A mesh on another device type than the
+    plan's is refused."""
+    mesh = getattr(rules, "mesh", None)
+    if device is None and mesh is not None and mesh.device_type != "cuda":
+        device = mesh.device_type
+    dev = resolve_device(device)
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"rules over a {mesh.device_type} mesh for a plan "
+                         f"on {dev}")
+    return dev
+
+
+def _mesh_multiple(pad_multiple, pool):
+    """The survivor padding multiple: `pad_multiple` rounded up to a
+    multiple of every mesh's size, so the tail's rows split evenly."""
+    m = max(1, int(pad_multiple))
+    for rules in pool:
+        if rules.mesh is not None:
+            m = math.lcm(m, rules.mesh.size())
+    return m
+
+
 class ExecutionPlan:
-    """What every plan shares: its graph, its device (None: the card) and
-    the survivor padding multiple; `run` maps `__call__` over a stream."""
+    """What every plan shares: its graph, its sharding rules, its device
+    (None: the card, or the mesh's device type) and the survivor padding
+    multiple (rounded up to a multiple of the mesh's size); `run` maps
+    `__call__` over a stream."""
     name = "base"
 
-    def __init__(self, graph: PipelineGraph, pad_multiple=1, device=None):
+    def __init__(self, graph: PipelineGraph, rules=NULL_RULES,
+                 pad_multiple=1, device=None):
         self.graph = graph
-        self.device = resolve_device(device)
-        self.pad_multiple = max(1, int(pad_multiple))
+        self.rules = rules
+        self.device = _mesh_device(rules, device)
+        self.pad_multiple = _mesh_multiple(pad_multiple, [rules])
 
     def _to_device(self, audio):
         return torch.as_tensor(audio, dtype=torch.float32, device=self.device)
 
     def detect(self, audio) -> PipelineOutput:
-        return self.graph.detection(self._to_device(audio))
+        return _whole_output(self.graph.detection(self._to_device(audio),
+                                                  self.rules))
 
     def __call__(self, audio) -> BatchResult:
         raise NotImplementedError
@@ -234,7 +275,7 @@ class FusedPlan(ExecutionPlan):
     def __call__(self, audio) -> BatchResult:
         with obs_tracing.span("fused_batch"):
             x = self._to_device(audio)
-            out = self.graph.fused(x)
+            out = _whole_output(self.graph.fused(x, self.rules))
             keep = out.keep.cpu().numpy()
             idx = torch.from_numpy(np.flatnonzero(keep)).to(out.wave5.device)
             cleaned = out.wave5.index_select(0, idx).cpu().numpy()
@@ -253,14 +294,15 @@ class TwoPhasePlan(ExecutionPlan):
     choice, as the reference's signature has it."""
     name = "two_phase"
 
-    def __init__(self, graph: PipelineGraph, pad_multiple=1, bucket="linear",
-                 donate=False, fuse_tail=None, device=None):
+    def __init__(self, graph: PipelineGraph, rules=NULL_RULES,
+                 pad_multiple=1, bucket="linear", donate=False,
+                 fuse_tail=None, device=None):
         if not graph.has_removal_point:
             raise GraphValidationError(
                 f"plan '{self.name}' needs a 'removal_point' stage in the "
                 f"graph (stages: {graph.names}); use the fused plan for "
                 f"graphs without early exit")
-        super().__init__(graph, pad_multiple, device)
+        super().__init__(graph, rules, pad_multiple, device)
         self.bucket = bucket
         SCHED.quantize_survivors(0, 1, 1, bucket)     # validate the mode
         if donate is None:
@@ -292,7 +334,7 @@ class TwoPhasePlan(ExecutionPlan):
             x, slot = self._to_device(audio), None
         else:
             x, slot = self.staging.upload(audio)
-        det = self.graph.detection(x)
+        det = _whole_output(self.graph.detection(x, self.rules))
         if slot is not None:
             if det.wave5.untyped_storage().data_ptr() == \
                     x.untyped_storage().data_ptr():
@@ -323,9 +365,10 @@ class TwoPhasePlan(ExecutionPlan):
             idx_t = torch.from_numpy(idx)
             if self.device.type == "cuda":      # no wait on the stream
                 idx_t = idx_t.pin_memory().to(self.device, non_blocking=True)
-            tail =(self.graph.tail_indexed_fused if self.fuse_tail
+            tail = (self.graph.tail_indexed_fused if self.fuse_tail
                     else self.graph.tail_indexed)
-            cleaned = self._readback(tail(d.det.wave5, idx_t)[:n_real])
+            cleaned = self._readback(
+                whole(tail(d.det.wave5, idx_t, self.rules))[:n_real])
             h2d = idx.nbytes
         t3 = time.perf_counter()
         wave5 = d.det.wave5
@@ -392,10 +435,11 @@ class AsyncPlan(TwoPhasePlan):
     those bytes in `d2h_bytes`."""
     name = "async"
 
-    def __init__(self, graph, pad_multiple=1, depth=2, bucket="pow2",
-                 donate=None, emit_buffer=1, fuse_tail=None, device=None):
-        super().__init__(graph, pad_multiple, bucket=bucket, donate=donate,
-                         fuse_tail=fuse_tail, device=device)
+    def __init__(self, graph, rules=NULL_RULES, pad_multiple=1, depth=2,
+                 bucket="pow2", donate=None, emit_buffer=1, fuse_tail=None,
+                 device=None):
+        super().__init__(graph, rules, pad_multiple, bucket=bucket,
+                         donate=donate, fuse_tail=fuse_tail, device=device)
         self.depth = max(1, int(depth))
         # dispatched tails retained before emission: 1 double-buffers the
         # cleaned readback behind the next batch; 0 emits each result the
@@ -447,11 +491,13 @@ class StreamingPlan(AsyncPlan):
     down."""
     name = "streaming"
 
-    def __init__(self, graph, pad_multiple=1, depth=1, bucket="linear",
-                 donate=False, emit_buffer=0, fuse_tail=None, device=None):
-        super().__init__(graph, pad_multiple, depth=depth, bucket=bucket,
-                         donate=donate, emit_buffer=emit_buffer,
-                         fuse_tail=fuse_tail, device=device)
+    def __init__(self, graph, rules=NULL_RULES, pad_multiple=1, depth=1,
+                 bucket="linear", donate=False, emit_buffer=0,
+                 fuse_tail=None, device=None):
+        super().__init__(graph, rules, pad_multiple, depth=depth,
+                         bucket=bucket, donate=donate,
+                         emit_buffer=emit_buffer, fuse_tail=fuse_tail,
+                         device=device)
 
 
 class _StreamMeta:
@@ -583,9 +629,12 @@ class ShardedPlan(TwoPhasePlan):
     this process's environment (`OMP_NUM_THREADS` sets a CPU worker's
     threads).
 
-    `__call__` (the serve path) always row-splits in-process. The
-    reference's per-shard `rules` pool has no counterpart yet: every
-    in-process shard runs on this plan's device. `telemetry` (a
+    `__call__` (the serve path) always row-splits in-process. `rules` is
+    one ShardingRules shared by every shard or one a shard
+    (`distributed.sharding.pool_rules`): an in-process shard runs its
+    detection and tail under its own rules, on its mesh's device, several
+    shards on one card sharing it; a shard's rows must then split evenly
+    over its mesh. Worker processes run unmeshed. `telemetry` (a
     `obs.telemetry.TelemetryWriter`) goes to the QueueService of either
     mode, which writes the per-chunk records on the master.
 
@@ -598,16 +647,30 @@ class ShardedPlan(TwoPhasePlan):
     the backstop.
     """
     name = "sharded"
+    accepts_rules_pool = True
 
-    def __init__(self, graph, pad_multiple=1, shards=2, lease_items=1,
-                 injector=None, monitor=None, transport="inproc",
-                 worker_poll_s=0.05, stall_timeout_s=300.0,
-                 lease_timeout_s=None, speculate=None,
-                 straggler_factor=2.0, straggler_min_history=4,
-                 elastic=False, data_plane=None, telemetry=None,
-                 device=None):
-        super().__init__(graph, pad_multiple, device=device)
-        self.shards = max(1, int(shards))
+    def __init__(self, graph, rules=NULL_RULES, pad_multiple=1, shards=2,
+                 lease_items=1, injector=None, monitor=None,
+                 transport="inproc", worker_poll_s=0.05,
+                 stall_timeout_s=300.0, lease_timeout_s=None,
+                 speculate=None, straggler_factor=2.0,
+                 straggler_min_history=4, elastic=False, data_plane=None,
+                 telemetry=None, device=None):
+        shards = max(1, int(shards))
+        if isinstance(rules, (list, tuple)):
+            if len(rules) != shards:
+                raise ValueError(
+                    f"got {len(rules)} per-shard rules for {shards} "
+                    f"shards")
+            pool = tuple(rules)
+        else:
+            pool = (rules,) * shards
+        super().__init__(graph, pool[0], pad_multiple, device=device)
+        for r in pool[1:]:
+            _mesh_device(r, self.device.type)
+        self.rules_pool = pool
+        self.pad_multiple = _mesh_multiple(self.pad_multiple, pool)
+        self.shards = shards
         self.lease_items = max(1, int(lease_items))
         self.injector = injector
         self.monitor = monitor
@@ -633,7 +696,7 @@ class ShardedPlan(TwoPhasePlan):
             raise ValueError("data_plane= rides the proc/tcp worker "
                              "runtime; the in-process loop never "
                              "serialises chunks")
-        self.rebalancer = SCHED.Rebalancer(self.shards, pad_multiple)
+        self.rebalancer = SCHED.Rebalancer(self.shards, self.pad_multiple)
         self.redeliveries = 0           # mirrored off the queue after run()
         self.speculations = 0
         self.speculations_lost = 0
@@ -661,11 +724,19 @@ class ShardedPlan(TwoPhasePlan):
             raise ValueError(f"transport object {t!r} names no known kind")
         return kind
 
+    # -- per-shard phases, each under its shard's rules ---------------------
+    def _detect_on(self, shard, x):
+        return _whole_output(self.graph.detection(x, self.rules_pool[shard]))
+
+    def _tail_on(self, shard, batch):
+        return whole(self.graph.tail(batch, self.rules_pool[shard]))
+
     # -- single batch: row-split across shards, rebalance, reassemble -------
     def __call__(self, audio) -> BatchResult:
         x = self._to_device(audio)
-        parts = [p for p in torch.tensor_split(x, self.shards) if len(p)]
-        dets = [self.graph.detection(p) for p in parts]
+        dets = [self._detect_on(j, p)
+                for j, p in enumerate(torch.tensor_split(x, self.shards))
+                if len(p)]
         keeps = [d.keep.cpu().numpy() for d in dets]
         cleaned, asg = self._rebalanced_tail(
             [(d.wave5, k) for d, k in zip(dets, keeps)], keeps, len(dets))
@@ -704,7 +775,7 @@ class ShardedPlan(TwoPhasePlan):
         cleaned = torch.empty_like(packed)
         for slot, batch, n_real in self.rebalancer.split(packed, asg):
             lo = int(asg.bounds[slot])
-            cleaned[lo:lo + n_real] = self.graph.tail(batch)[:n_real]
+            cleaned[lo:lo + n_real] = self._tail_on(slot, batch)[:n_real]
         return cleaned.cpu().numpy(), asg
 
     # -- streams ------------------------------------------------------------
@@ -806,7 +877,8 @@ class ShardedPlan(TwoPhasePlan):
                             else (item, None)
                         x = self._to_device(chunks)
                         round_work.append((ld.shard, wid,
-                                           self.graph.detection(x), extra,
+                                           self._detect_on(ld.shard, x),
+                                           extra,
                                            x.numel() * x.element_size()))
                 if round_work:
                     stalls = 0
@@ -1094,6 +1166,23 @@ def _host_f32(chunks) -> np.ndarray:
     return np.asarray(chunks, np.float32)
 
 
+def _facade_rules(rules):
+    """One rules object for facade-level work when a per-shard list is
+    given: its first."""
+    if isinstance(rules, (list, tuple)):
+        return rules[0] if rules else NULL_RULES
+    return rules
+
+
+def _check_rules_pool(rules, plan_cls, what):
+    if isinstance(rules, (list, tuple)) and not (
+            isinstance(plan_cls, type)
+            and getattr(plan_cls, "accepts_rules_pool", False)):
+        raise ValueError(
+            f"a per-shard rules list is only valid with {what}, not "
+            f"{getattr(plan_cls, 'name', plan_cls)!r}")
+
+
 class CachedPlan(ExecutionPlan):
     """Content-addressed caching and resumability around any inner plan.
 
@@ -1113,15 +1202,20 @@ class CachedPlan(ExecutionPlan):
     recomputes a corrupt entry (`evict_corrupt=True`); pass a `ChunkStore`
     for archival strictness. A hit's `det` holds masks and stats as CPU
     tensors and a zero `wave5` of the right shape: the pre-denoise waveform
-    is not stored."""
-    name = "cached"
+    is not stored. A per-shard rules list (`pool_rules`) goes to a sharded
+    inner plan; any other inner plan refuses one."""
 
-    def __init__(self, graph, pad_multiple=1, inner="two_phase", store=None,
-                 journal=None, resume=False, device=None, **inner_kwargs):
-        super().__init__(graph, pad_multiple, device)
+    name = "cached"
+    accepts_rules_pool = True
+
+    def __init__(self, graph, rules=NULL_RULES, pad_multiple=1,
+                 inner="two_phase", store=None, journal=None, resume=False,
+                 device=None, **inner_kwargs):
         inner_cls = PLANS[inner] if isinstance(inner, str) else inner
-        self.inner = inner_cls(graph, pad_multiple, device=self.device,
-                               **inner_kwargs)
+        _check_rules_pool(rules, inner_cls, "the sharded plan as inner")
+        super().__init__(graph, _facade_rules(rules), pad_multiple, device)
+        self.inner = inner_cls(graph, rules, pad_multiple,
+                               device=self.device, **inner_kwargs)
         if isinstance(store, (str, os.PathLike)):
             store = ChunkStore(store, evict_corrupt=True)
         self.store = store
@@ -1265,25 +1359,36 @@ class Preprocessor:
 
         pre = Preprocessor(SERF_AUDIO, plan="async")          # on the card
         pre = Preprocessor(SERF_AUDIO, device="cpu")          # plain versions
+        pre = Preprocessor(SERF_AUDIO, ShardingRules(make_local_mesh()))
         for res in pre.run(stream):
             use(res.cleaned, res.det.stats, res.n_kept)
 
-    `plan` is a name from `PLANS` or a plan class; `stages` overrides the
-    config-declared stage list (ablations, or the `("hpf", "mmse")` tail);
-    `source_channels` is the input's channel count (2: stereo); the plan
-    pads the survivor tail to a multiple of `pad_multiple`. Extra keyword
-    arguments go to the plan (e.g. `depth=4`, `fuse_tail=False`).
-    `device=None` means the CUDA card and raises when there is none.
+    `rules` are the sharding rules (`NULL_RULES`: no mesh), or for the
+    sharded plan one a shard (`distributed.sharding.pool_rules`); under a
+    mesh every phase runs the rank's rows and the plan emits whole results
+    on every rank. `plan` is a name from `PLANS` or a plan class; `stages`
+    overrides the config-declared stage list (ablations, or the
+    `("hpf", "mmse")` tail); `source_channels` is the input's channel
+    count (2: stereo); the plan pads the survivor tail to a multiple of
+    `pad_multiple` (and of the mesh's size). Extra keyword arguments go to
+    the plan (e.g. `depth=4`, `fuse_tail=False`). `device=None` means the
+    CUDA card (raising when there is none), or the CPU under a CPU mesh.
     """
 
-    def __init__(self, cfg, plan="two_phase", pad_multiple=1, stages=None,
-                 source_channels=2, device=None, **plan_kwargs):
+    def __init__(self, cfg, rules=NULL_RULES, plan="two_phase",
+                 pad_multiple=1, stages=None, source_channels=2, device=None,
+                 **plan_kwargs):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        # facade-level detect() uses one rules object even when the plan
+        # gets a per-shard list
+        self.rules = _facade_rules(rules)
+        self.device = _mesh_device(self.rules, device)
         self.graph = PipelineGraph(cfg, stages, source_channels)
         plan_cls = PLANS[plan] if isinstance(plan, str) else plan
-        self.plan = plan_cls(self.graph, pad_multiple, device=self.device,
-                             **plan_kwargs)
+        _check_rules_pool(rules, plan_cls, "the sharded plan (or a cached "
+                          "wrapper around it)")
+        self.plan = plan_cls(self.graph, rules, pad_multiple,
+                             device=self.device, **plan_kwargs)
 
     def __call__(self, audio) -> BatchResult:
         """One batch of (B, C, S_long_src) long chunks -> BatchResult."""

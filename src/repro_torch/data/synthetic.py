@@ -103,3 +103,9 @@ def generate_labelled(seed, n_segments, segment_s=5.0, rate=44_100,
         audio.append(x)
         labels.append(li)
     return np.stack(audio), np.asarray(labels, np.int32)
+
+
+def generate_hours(seed, hours, rate=44_100, **kw):
+    """Enough 5 s segments to cover `hours` of audio."""
+    n = int(hours * 3600 / 5.0)
+    return generate_labelled(seed, n, 5.0, rate, **kw)

@@ -1,3 +1,4 @@
-"""Logical-axis sharding rules (`sharding.py`). The mesh half — a torch
-`DeviceMesh` behind the rules, DTensor placements, `collective_matmul` —
-is not ported yet (ROADMAP Queue A item 1)."""
+"""Logical-axis sharding rules over a torch `DeviceMesh` (`sharding.py`:
+specs, DTensor placements, constraints as redistributions) and the ring
+all-gather matmul (`collective_matmul.py`); the meshes come from
+`launch.mesh`."""

@@ -1,11 +1,17 @@
-"""Logical-axis sharding rules, without a mesh (the port's copy of the
-reference's `distributed/sharding.py`, its mesh-free half).
+"""Logical-axis sharding rules (the port's copy of the reference's
+`distributed/sharding.py`) over a torch `DeviceMesh`.
 
 Models never mention mesh axes directly; they use logical names, and the
 rules map logical -> mesh axes per sharding mode. Anything the mesh does not
-provide is dropped, so with no mesh every name resolves to None (replicated)
-and `constrain` returns its input: the models, the serving engine and the
-preprocessing plans call it the same way with or without one.
+provide is dropped (its `mesh_dim_names` filter each name's axes), so with
+no mesh every name resolves to None (replicated) and `constrain` returns its
+input: the models, the serving engine and the preprocessing plans call it
+the same way with or without one.
+
+Under a mesh, `spec` gives the reference's `PartitionSpec` entries as a
+tuple, `sharding` the DTensor placements (one per mesh dim: `Shard(d)` where
+the spec puts tensor dim d on that mesh axis, else `Replicate()`), and
+`constrain` redistributes a DTensor to them.
 
 Modes
   tp       : batch over (pod,data); fused feature dims (q_dim/kv_dim/ff/vocab/
@@ -13,12 +19,10 @@ Modes
   fsdp_tp  : tp + weights/optimizer d_model ("embed") dim sharded over data.
   zero3    : pure data parallelism, weights sharded on their feature dims.
   sp_ep    : sequence-parallel residual stream, expert-parallel MoE.
-
-A mesh (a torch `DeviceMesh`, constraints as DTensor redistributions) is
-ROADMAP Queue A item 1's mesh half; until it is ported a non-None mesh
-raises `NotImplementedError`.
 """
 from __future__ import annotations
+
+import torch
 
 # logical axis -> preferred mesh axes (filtered by what the mesh provides);
 # the four tables equal the reference's, entry for entry
@@ -73,58 +77,205 @@ for _t in ("tp", "fsdp_tp", "zero3"):
     _TABLES[_t]["seq_cp"] = ()
 
 
+class Placements(tuple):
+    """DTensor placements, one per mesh dim, that also carry their mesh
+    (as the reference's `NamedSharding` does): a tuple, equal to the plain
+    tuple of the same placements."""
+
+    def __new__(cls, placements, mesh):
+        self = super().__new__(cls, placements)
+        self.mesh = mesh
+        return self
+
+    def __reduce__(self):
+        return tuple, (tuple(self),)
+
+    def place(self, t):
+        """`t` (a tensor every rank holds whole) as a DTensor with these
+        placements: each rank keeps its own block, no communication. A
+        DTensor is redistributed."""
+        if is_dtensor(t):
+            if tuple(t.placements) == tuple(self):
+                return t
+            return t.redistribute(self.mesh, tuple(self))
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(t, self.mesh, tuple(self),
+                                 src_data_rank=None)
+
+
 class ShardingRules:
     def __init__(self, mesh=None, mode: str = "tp",
                  overrides: dict | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ShardingRules over a mesh (a torch DeviceMesh with DTensor "
-                "placements) is not ported yet: ROADMAP Queue A item 1")
         if mode not in _TABLES:
             raise KeyError(f"unknown sharding mode {mode!r}")
-        self.mesh = None
+        self.mesh = mesh
         self.mode = mode
         table = dict(_TABLES[mode])
         if overrides:
             table.update(overrides)
         self._table = table
+        self._mesh_axes = (set(mesh.mesh_dim_names or ())
+                           if mesh is not None else set())
 
     def _resolve(self, name):
-        """The mesh axes of one logical name: None (replicated) without a
-        mesh. An unknown name raises KeyError, as in the reference."""
-        if name is not None:
-            self._table[name]
-        return None
+        """The mesh axes of one logical name: None (replicated), one axis
+        name, or a tuple of them. An unknown name raises KeyError, as in
+        the reference."""
+        if name is None:
+            return None
+        axes = tuple(a for a in self._table[name] if a in self._mesh_axes)
+        if not axes:
+            return None
+        return axes if len(axes) > 1 else axes[0]
 
     def spec(self, *axes) -> tuple:
-        """Mesh axes per dim from logical axis names (None = replicated)."""
+        """The reference's PartitionSpec entries from logical axis names
+        (None = replicated dim)."""
         return tuple(self._resolve(a) for a in axes)
 
     def sharding(self, *axes):
-        """The placement of a tensor with these logical axes: None without
-        a mesh."""
-        self.spec(*axes)
-        return None
+        """The DTensor placements of a tensor with these logical axes (one
+        per mesh dim); None without a mesh."""
+        spec = self.spec(*axes)
+        if self.mesh is None:
+            return None
+        from torch.distributed.tensor import Replicate, Shard
+        placements = [Replicate()] * self.mesh.ndim
+        names = list(self.mesh.mesh_dim_names)
+        for d, entry in enumerate(spec):
+            for ax in ((entry,) if isinstance(entry, str) else entry or ()):
+                placements[names.index(ax)] = Shard(d)
+        return Placements(placements, self.mesh)
 
     def constrain(self, x, *axes):
-        """A no-op without a mesh: returns `x` itself."""
-        return x
+        """A DTensor redistributed to these axes' placements; a plain
+        tensor (or any other value) comes back as it is."""
+        if self.mesh is None or not is_dtensor(x):
+            return x
+        placements = tuple(self.sharding(*axes))
+        if tuple(x.placements) == placements:
+            return x
+        # both ways contiguous: a redistributed local block (and the
+        # gradient the redistribution hands back) may not be, and ops such
+        # as einsum view them
+        x = _ContiguousGrad.apply(x)
+        return x.redistribute(self.mesh, placements).contiguous()
 
     @property
     def fingerprint(self):
-        """Stable hashable identity: mode, mesh (none) and the resolved rule
-        table, equal to the reference's for the same mode and overrides."""
+        """Stable hashable identity: mode, mesh (dim names, shape and the
+        flattened rank ids, the reference's device ids, so two same-shape
+        meshes over different ranks differ) and the resolved rule table."""
+        mesh = (() if self.mesh is None
+                else (tuple(self.mesh.mesh_dim_names),
+                      tuple(self.mesh.mesh.shape),
+                      tuple(int(r) for r in self.mesh.mesh.flatten())))
         table = tuple(sorted((k, tuple(v)) for k, v in self._table.items()))
-        return (self.mode, (), table)
+        return (self.mode, mesh, table)
 
 
 NULL_RULES = ShardingRules(mesh=None)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def whole(x):
+    """A DTensor gathered whole (the same tensor on every rank); anything
+    else as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def place_like(new, old):
+    """`new` placed as `old` is: redistributed to `old`'s DTensor
+    placements (a reduction may leave others, a `Partial` sum among them),
+    or made whole where `old` is a plain tensor. A plain `new` comes back
+    as it is."""
+    if not is_dtensor(new):
+        return new
+    if not is_dtensor(old):
+        return new.full_tensor()
+    if tuple(new.placements) != tuple(old.placements):
+        return new.redistribute(old.device_mesh, old.placements)
+    return new
+
+
+def replicate_dim(x, dim):
+    """`x` with tensor dim `dim` made whole on every rank: a DTensor sharded
+    on it is redistributed to `Replicate()` there (its other placements
+    kept); anything else comes back as it is. For ops that index along a
+    sharded dim (an embedding lookup, a gather over the vocab)."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= x.ndim
+    placements = tuple(Replicate() if isinstance(pl, Shard) and pl.dim == dim
+                       else pl for pl in x.placements)
+    if placements == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def batch_local(fn, *xs, **kw):
+    """`fn(*xs, **kw)` on each rank's batch rows: DTensor arguments keep
+    only their batch (dim 0) sharding, every other dim made whole, and run
+    as local tensors; the result is the DTensor of the first's placements.
+    For an op that is local per batch row but that DTensor cannot place
+    on another layout (attention over heads sharded beside the batch).
+    Without DTensors, `fn(*xs, **kw)`."""
+    if not is_dtensor(xs[0]):
+        return fn(*xs, **kw)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    x0 = xs[0]
+    placements = tuple(pl if isinstance(pl, Shard) and pl.dim == 0
+                       else Replicate() for pl in x0.placements)
+    local = [x.redistribute(x0.device_mesh, placements).to_local()
+             for x in xs]
+    return DTensor.from_local(fn(*local, **kw), x0.device_mesh, placements)
+
+
+def rows_local(fn, x, *ws):
+    """`fn(x, *ws)` for an op that contracts the last dim of `x` with the
+    whole of each `ws` (a projection). Where `x` is a DTensor sharded on
+    two of its leading dims (the batch and the sequence of sp_ep's
+    residual stream) each rank runs `fn` on its rows, the `ws` whole:
+    DTensor cannot place the matmul's flatten of two sharded dims on every
+    torch version (2.11 refuses it). Otherwise `fn(x, *ws)` as it is."""
+    if not is_dtensor(x):
+        return fn(x, *ws)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    lead = {pl.dim for pl in x.placements
+            if isinstance(pl, Shard) and pl.dim < x.ndim - 1}
+    if len(lead) < 2:
+        return fn(x, *ws)
+    mesh = x.device_mesh
+    placements = tuple(pl if isinstance(pl, Shard) and pl.dim < x.ndim - 1
+                       else Replicate() for pl in x.placements)
+    whole_ws = [w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+                for w in ws]
+    out = fn(x.redistribute(mesh, placements).to_local(), *whole_ws)
+    return DTensor.from_local(out, mesh, placements)
+
+
 def pool_rules(n_shards, meshes=None, mode="tp", overrides=None):
-    """Per-shard ShardingRules for a ShardedPlan: `meshes` is None (one
-    unmeshed rules object a shard) or, once the mesh half is ported, a mesh
-    or a sequence of per-shard meshes (cycled if shorter than n_shards)."""
+    """Per-shard ShardingRules for a ShardedPlan. `meshes` is one mesh
+    shared by every shard (or None), or a sequence of per-shard meshes,
+    cycled if shorter than n_shards. Same-mesh shards' fingerprints are
+    equal; shards over disjoint rank sets differ."""
     if meshes is None or not isinstance(meshes, (list, tuple)):
         meshes = [meshes]
     meshes = list(meshes)
@@ -139,8 +290,23 @@ def _is_spec_leaf(v):
         e is None or isinstance(e, str) for e in v)
 
 
+def tree_map(fn, tree, *rest):
+    """`fn` over the leaves of `tree` (nested dicts, lists and tuples; None
+    is an empty subtree), with the same-structured `rest` trees' leaves as
+    further arguments."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
 def tree_shardings(rules: ShardingRules, spec_tree):
-    """Map a tree (dicts, lists, tuples) of logical-axis tuples to
+    """Map a tree (dicts, lists, tuples) of logical-axis tuples to DTensor
     placements: None without a mesh, as in the reference."""
     if rules.mesh is None:
         return None

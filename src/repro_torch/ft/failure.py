@@ -1,20 +1,22 @@
-"""Fault-tolerance primitives for the master/worker runtime (the port's
-own copy of `CrashInjector`, `HeartbeatMonitor` and `StragglerDetector`
-from the reference's `ft/failure.py`, which imports no JAX; the port
-imports nothing of the reference package).
+"""Fault-tolerance primitives for the master/worker runtime and the
+training stack's elastic restart (the port's own copy of `CrashInjector`,
+`HeartbeatMonitor`, `StragglerDetector`, `MeshPlan` and `plan_mesh` from
+the reference's `ft/failure.py`, which imports no JAX; the port imports
+nothing of the reference package).
 
 They run on the master's host; clocks are injectable, so that the logic
 is tested without wall-time sleeps. The paper's master "re-sends files to
 different slaves if a slave disconnects or crashes": here a heartbeat
 timeout marks a worker dead, its queue leases come back (`data/queue.py`)
-and another worker takes them. The reference's `MeshPlan` / `plan_mesh`
-serve the LLM stack's elastic restart and come with it.
+and another worker takes them. `plan_mesh` plans the mesh an elastic
+restart re-shards onto (`launch.mesh.mesh_from_plan`).
 """
 from __future__ import annotations
 
 import os
 import signal
 import time
+from dataclasses import dataclass
 
 
 class CrashInjector:
@@ -154,3 +156,30 @@ class StragglerDetector:
         return sorted((t for t, t0 in self._inflight.items()
                        if now - t0 > limit),
                       key=lambda t: self._inflight[t])
+
+
+@dataclass
+class MeshPlan:
+    shape: tuple
+    axes: tuple
+    reason: str = ""
+
+
+def plan_mesh(n_devices, model_parallel=16, multi_pod_size=256):
+    """Elastic mesh planning: keep TP fixed (weights shard cleanly at 16),
+    flex the data axis, add the pod axis above one pod's worth of chips.
+
+    Degrades gracefully: if n_devices isn't divisible, the largest usable
+    subset is planned (the launcher drops the spare hosts)."""
+    tp = model_parallel
+    if n_devices < tp:                  # tiny fleets: shrink TP instead
+        tp = 1 << (n_devices.bit_length() - 1)
+    usable = (n_devices // tp) * tp
+    dp = usable // tp
+    if usable > multi_pod_size and usable % multi_pod_size == 0:
+        pods = usable // multi_pod_size
+        per_pod_dp = multi_pod_size // tp
+        return MeshPlan((pods, per_pod_dp, tp), ("pod", "data", "model"),
+                        f"{pods} pods x ({per_pod_dp}x{tp})")
+    return MeshPlan((dp, tp), ("data", "model"),
+                    f"single pod {dp}x{tp}, {n_devices - usable} spare")

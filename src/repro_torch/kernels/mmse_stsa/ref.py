@@ -51,3 +51,10 @@ def mmse_stsa_gain_ref(power, noise_psd, alpha=0.98, gain_floor=0.1):
 def estimate_noise_psd(power, n_frames=16):
     """Initial-segment noise PSD estimate: mean of the first n_frames."""
     return power[:, :n_frames, :].mean(dim=1)
+
+
+def denoise_power_ref(power, alpha=0.98, gain_floor=0.1, noise_frames=16):
+    """The MMSE-STSA gains of `power` against its initial-segment noise
+    estimate."""
+    noise = estimate_noise_psd(power, noise_frames)
+    return mmse_stsa_gain_ref(power, noise, alpha, gain_floor)

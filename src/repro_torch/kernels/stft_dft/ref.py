@@ -39,6 +39,16 @@ def stft_ref(x, window=256, hop=128):
     return torch.fft.rfft(frames, dim=-1)
 
 
+def stft_ref_packed(x, window=256, hop=128):
+    """Packed real output (B, F, 2*(window//2+1)): [re | im]."""
+    z = stft_ref(x, window, hop)
+    return torch.cat([z.real, z.imag], dim=-1)
+
+
+def power_spectrum(x, window=256, hop=128):
+    return stft_ref(x, window, hop).abs() ** 2
+
+
 @functools.lru_cache(maxsize=16)
 def _ola_norm(device, window, hop, n_frames, n_samples):
     """1 / max(sum of window^2 over the overlapping frames, 1e-8) per output

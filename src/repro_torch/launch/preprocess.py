@@ -40,6 +40,11 @@ emitted); `--trace FILE` writes a Chrome trace of the run, worker
 processes' spans parented under the master's run span. Either adds one
 `metrics:` line per non-zero series of the metrics registry. `--mode` is
 another name for `--plan`, as in the reference.
+
+As the reference's, it builds `make_local_mesh()` over the ranks of the
+process group (alone, a one-rank group of its own), pads the survivor tail
+to the mesh's size and passes `ShardingRules(mesh)`, or
+`pool_rules(--shards, mesh)` to the sharded plan, to the `Preprocessor`.
 """
 from __future__ import annotations
 
@@ -47,11 +52,14 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import SERF_AUDIO
 from repro_torch.core.plans import PLANS, Preprocessor, ShardedPlan, SizedIter
 from repro_torch.core.scheduler import balance_stats
 from repro_torch.data.loader import audio_batch_maker, audio_shard_pool
+from repro_torch.distributed.sharding import ShardingRules, pool_rules
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import telemetry as obs_telemetry
 from repro_torch.obs import tracing as obs_tracing
@@ -118,6 +126,15 @@ def main(argv=None):
         ap.error("--resume requires --store")
     if args.store_max_bytes is not None and not args.store:
         ap.error("--store-max-bytes requires --store")
+    own_group = not dist.is_initialized()
+    try:
+        return _run(ap, args)
+    finally:
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(ap, args):
 
     sharded = args.plan == "sharded"
     if not sharded:
@@ -169,8 +186,14 @@ def main(argv=None):
         tracer.start_run("preprocess_run")
     if telem is not None and plan == "sharded":
         plan_kwargs["telemetry"] = telem
-    pre = Preprocessor(SERF_AUDIO, plan=plan, device=args.device,
-                       **plan_kwargs)
+    mesh = make_local_mesh(device=args.device)
+    pad = mesh.size()
+    if args.batch_long_chunks % pad:
+        ap.error(f"--batch-long-chunks {args.batch_long_chunks} does not "
+                 f"split over the mesh's {pad} devices")
+    rules = pool_rules(args.shards, mesh) if sharded else ShardingRules(mesh)
+    pre = Preprocessor(SERF_AUDIO, rules, plan=plan, pad_multiple=pad,
+                       device=args.device, **plan_kwargs)
     n_batches = max(1, int(round(args.minutes / args.batch_long_chunks)))
     make = audio_batch_maker(args.seed, args.batch_long_chunks)
     if sharded and not args.store:
@@ -257,14 +280,12 @@ def main(argv=None):
         for line in worker_summary(exec_plan.worker_stats):
             print(line)
     if timings and "in_flight" in timings[0]:
-        n = len(timings)
-        print("pipeline: " + "  ".join(
-            f"{k} {1e3 * sum(t[k + '_s'] for t in timings) / n:.2f}ms"
-            for k in _STAGES))
-        print(f"pipeline: "
-              f"{sum(1 for t in timings if t['in_flight'] >= 2)}/{n} "
+        report = pipeline_report(timings)
+        print("pipeline: " + "  ".join(f"{k} {report[k + '_ms']:.2f}ms"
+                                       for k in _STAGES))
+        print(f"pipeline: {report['overlapped']}/{report['batches']} "
               f"overlapped dispatches (max in-flight "
-              f"{max(t['in_flight'] for t in timings)})")
+              f"{report['max_in_flight']})")
     if cached is not None and cached.stats is not None:
         print(f"store: {cached.stats}")
     if args.store_max_bytes is not None:
@@ -295,6 +316,31 @@ def worker_summary(worker_stats):
             f"({st.leases_held} still held), "
             f"{st.redeliveries} redelivered, last beat {beat}{split}")
     return lines
+
+
+def pipeline_report(timings):
+    """Per-batch plan timing records aggregated: per-stage mean host ms,
+    the overlapped dispatches, and the host-boundary traffic per batch
+    (the reference's keys)."""
+    n = len(timings)
+    rep = {"batches": n}
+    for k in _STAGES:
+        rep[k + "_ms"] = 1e3 * sum(t.get(k + "_s", 0.0)
+                                   for t in timings) / n
+    rep["overlapped"] = sum(1 for t in timings
+                            if t.get("in_flight", 1) >= 2)
+    rep["max_in_flight"] = max(t.get("in_flight", 1) for t in timings)
+    rep["d2h_bytes_per_batch"] = sum(t.get("d2h_bytes", 0)
+                                     for t in timings) / n
+    rep["h2d_bytes_per_batch"] = sum(t.get("h2d_bytes", 0)
+                                     for t in timings) / n
+    # what the host-compaction bookkeeping would have moved per batch on
+    # this stream
+    rep["old_boundary_bytes_per_batch"] = sum(
+        t.get("old_boundary_bytes", 0) for t in timings) / n
+    rep["full_batch_bytes"] = sum(t.get("wave5_bytes", 0)
+                                  for t in timings) / n
+    return rep
 
 
 if __name__ == "__main__":

@@ -17,26 +17,39 @@ parameters (by name), the optimizer state and the loader's cursor every
 `--ckpt-every` steps (asynchronously) and at the end, keeping the last 3;
 `--resume` restores the latest and goes on from its step and batch.
 
-Only one card: `--model-parallel` other than 1 needs the mesh half of the
-sharding rules (ROADMAP Queue A item 1) and raises. `--device cpu` runs
-the plain PyTorch versions; without a card and without it, the launcher
-fails.
+As the reference's, it builds `make_local_mesh(--model-parallel)` over the
+ranks of the process group and `ShardingRules(mesh, cfg.sharding_mode)`.
+Alone, the process is a one-rank group of its own; under torchrun-style
+ranks (`RANK`, `WORLD_SIZE`, `MASTER_ADDR`, `MASTER_PORT` in the
+environment) or in a group the caller started, the mesh spans every rank
+and `--model-parallel N` shards the model N ways: the parameters and the
+optimizer state are DTensors placed by the rules, each rank draws the same
+batch and keeps its rows, checkpoints are gathered and written by rank 0,
+and a resume re-shards them onto this run's mesh. On a mesh of one device
+the state stays plain tensors (`--distribute` makes it DTensors there too).
+Rank 0 alone prints. `--device cpu` runs the plain PyTorch versions;
+without a card and without it, the launcher fails.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.configs import get_config, reduced as reduce_cfg
 from repro_torch.data.loader import TokenLoader
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import ShardingRules
+from repro_torch.distributed.sharding import (ShardingRules, is_dtensor,
+                                              tree_shardings)
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.zoo import build_model
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.train_step import init_train_state, make_train_step
+from repro_torch.train.train_step import (init_train_state, make_train_step,
+                                          train_state_specs)
 
 
 def _stamp(device):
@@ -77,26 +90,48 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (the default; fails without a card) or cpu")
+    ap.add_argument("--distribute", action="store_true",
+                    help="DTensor state even on a one-device mesh")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: a model-parallel mesh "
-            f"needs the mesh half of the sharding rules, not ported yet "
-            f"(ROADMAP Queue A item 1)")
 
+    own_group = not dist.is_initialized()
+    if own_group and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # torchrun-style ranks: the group comes from the environment
+        cuda = args.device != "cpu" and torch.cuda.is_available()
+        if cuda:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl" if cuda else "gloo")
+    try:
+        return _train(args)
+    finally:
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args):
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
     model = build_model(cfg, device=device)
-    rules = ShardingRules(None, cfg.sharding_mode)
+    mesh = make_local_mesh(args.model_parallel, device)
+    rules = ShardingRules(mesh, cfg.sharding_mode)
+    lead = dist.get_rank() == 0
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
                         decay_steps=args.steps,
                         quantize_state=cfg.quantize_opt_state)
+    # None: DTensor state over more than one device only
     opt_state = init_train_state(
         model, opt_cfg, torch.Generator(device).manual_seed(args.seed),
-        compress_grads=args.compress_grads)
+        compress_grads=args.compress_grads, rules=rules,
+        distribute=args.distribute or None)
     params = dict(model.named_parameters())
+    shardings = None
+    if any(is_dtensor(p) for p in params.values()):
+        pspecs, ospecs = train_state_specs(model, opt_cfg,
+                                           args.compress_grads)
+        shardings = (tree_shardings(rules, pspecs),
+                     tree_shardings(rules, ospecs))
 
     start_step = 0
     loader_start = 0
@@ -104,13 +139,15 @@ def main(argv=None):
         last = ckpt.latest_step(args.ckpt_dir)
         if last is not None:
             (saved, opt_state), meta = ckpt.restore(
-                args.ckpt_dir, last, like=(params, opt_state))
+                args.ckpt_dir, last, like=(params, opt_state),
+                shardings=shardings)
             with torch.no_grad():
                 for name, p in params.items():
                     p.copy_(saved[name])
             start_step = meta["step"]
             loader_start = meta["cursor_done"]
-            print(f"resumed from step {start_step}")
+            if lead:
+                print(f"resumed from step {start_step}")
 
     step_fn = make_train_step(model, rules, opt_cfg, args.microbatches,
                               args.compress_grads)
@@ -131,7 +168,8 @@ def main(argv=None):
             # the batch is consumed; the loader retires its id only when
             # asked for the next one
             cursor_done = wid + 1
-            if step % args.log_every == 0 or step == start_step + 1:
+            if lead and (step % args.log_every == 0
+                         or step == start_step + 1):
                 m = {k: float(v) for k, v in metrics.items()}
                 toks = args.batch * args.seq * (step - start_step)
                 print(f"step {step:5d} loss {m['loss']:.4f} "
@@ -152,10 +190,12 @@ def main(argv=None):
     if args.ckpt_dir:
         ckpt.save(args.ckpt_dir, step, (params, opt_state),
                   meta={"step": step, "cursor_done": cursor_done})
-        ckpt.prune_old(args.ckpt_dir, keep=3)
+        if lead:
+            ckpt.prune_old(args.ckpt_dir, keep=3)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    print("done")
+    if lead:
+        print("done")
     return {"step": step, "model": model, "opt_state": opt_state,
             "losses": [float(v) for v in losses],
             "step_ms": [_elapsed_ms(a, b) for a, b in stamps]}

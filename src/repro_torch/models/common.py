@@ -14,7 +14,10 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.distributed.sharding import is_dtensor, replicate_dim
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -120,7 +123,14 @@ def make_embedding(cfg, generator):
 
 
 def embed_tokens(cfg, params, tokens, rules):
-    x = params["tok"][tokens.long()]
+    table = params["tok"]
+    if is_dtensor(table):
+        # under a mesh: the whole table (DTensor's masked vocab-parallel
+        # lookup fails on a vocab-sharded one) through `embedding`, whose
+        # backward DTensor places (that of an index can fail to)
+        x = F.embedding(tokens.long(), replicate_dim(table, 0))
+    else:
+        x = table[tokens.long()]
     if cfg.name.startswith("gemma") or cfg.family == "vlm":   # gemma scaling
         x = (x.float() * np.sqrt(cfg.d_model)).to(x.dtype)
     return rules.constrain(x, "batch", "seq", "embed")

@@ -6,9 +6,12 @@ erf, so the gelu and geglu blocks pass `approximate="tanh"`.
 """
 from __future__ import annotations
 
+from operator import matmul as mm
+
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import rows_local
 from repro_torch.models.common import dense_init, dtype_of
 
 GLU = ("swiglu", "geglu")
@@ -48,8 +51,9 @@ def _act(mlp, h):
 def apply_mlp(cfg, p, x, rules, mlp=None):
     mlp = mlp or cfg.mlp
     if mlp in GLU:
-        h = _act(mlp, x @ p["w_gate"]) * (x @ p["w_up"])
+        h = _act(mlp, rows_local(mm, x, p["w_gate"])) \
+            * rows_local(mm, x, p["w_up"])
     else:
-        h = _act(mlp, x @ p["w_up"])
+        h = _act(mlp, rows_local(mm, x, p["w_up"]))
     h = rules.constrain(h, "batch", "seq", "act_ff")
-    return (h @ p["w_down"]).to(x.dtype)
+    return rows_local(mm, h, p["w_down"]).to(x.dtype)

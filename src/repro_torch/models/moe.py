@@ -14,11 +14,14 @@ stable descending sort.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import rows_local
 from repro_torch.models.common import dense_init, dtype_of
 from repro_torch.models.mlp import GLU, _act
 
@@ -70,7 +73,8 @@ def apply_moe(cfg, p, x, rules, capacity_factor=None):
           else capacity_factor)
     C = moe_capacity(S, X, K, cf)
 
-    logits = torch.einsum("bse,ex->bsx", x.float(), p["router"])
+    logits = rows_local(functools.partial(torch.einsum, "bse,ex->bsx"),
+                        x.float(), p["router"])
     probs = torch.softmax(logits, dim=-1)                         # (B,S,X)
     gate_w, gate_i = top_k(probs, K)                              # (B,S,K)
     gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
@@ -87,8 +91,11 @@ def apply_moe(cfg, p, x, rules, capacity_factor=None):
     # more than one token, and it is discarded)
     tok = x.repeat_interleave(K, dim=1)                           # (B,T,E)
     slot = torch.where(keep, flat_i * C + pos, X * C)
-    dispatch = torch.zeros((B, X * C + 1, E), dtype=x.dtype, device=x.device)
-    dispatch.scatter_add_(1, slot[..., None].expand(-1, -1, E), tok)
+    # out of place: an in-place scatter into a fresh buffer cannot take a
+    # DTensor's placement
+    dispatch = torch.zeros((B, X * C + 1, E), dtype=x.dtype,
+                           device=x.device).scatter_add(
+        1, slot[..., None].expand(-1, -1, E), tok)
     dispatch = rules.constrain(dispatch, "batch", None, None)
     xe = dispatch[:, :-1].reshape(B, X, C, E)
     exp_ax = "act_experts" if cfg.expert_shard == "ep" else None

@@ -14,11 +14,13 @@ functionally).
 from __future__ import annotations
 
 import functools
+from operator import matmul as mm
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import batch_local, rows_local
 from repro_torch.models import attention as A
 from repro_torch.models.common import apply_norm, apply_rope, make_norm_params
 from repro_torch.models.mlp import apply_mlp, init_mlp, mlp_specs
@@ -39,9 +41,11 @@ def attn_sublayer(cfg, p, x, positions, rules, *, causal=True, prefix_len=0,
     """Full-sequence attention. x: (B,S,E) -> (B,S,E) [, (k, v) for
     caching]."""
     kv_in = x if kv_x is None else kv_x
-    q = rules.constrain(x @ p["wq"], "batch", "seq", "act_q")
-    k = rules.constrain(kv_in @ p["wk"], "batch", "seq", "act_kv")
-    v = rules.constrain(kv_in @ p["wv"], "batch", "seq", "act_kv")
+    q = rules.constrain(rows_local(mm, x, p["wq"]), "batch", "seq", "act_q")
+    k = rules.constrain(rows_local(mm, kv_in, p["wk"]), "batch", "seq",
+                        "act_kv")
+    v = rules.constrain(rows_local(mm, kv_in, p["wv"]), "batch", "seq",
+                        "act_kv")
     q, k, v = A.split_heads(cfg, q, k, v)
     if cfg.use_rope:
         kv_pos = positions if kv_positions is None else kv_positions
@@ -51,16 +55,19 @@ def attn_sublayer(cfg, p, x, positions, rules, *, causal=True, prefix_len=0,
         k = apply_rope(k, kv_pos, cfg.rope_theta)
     use_cp = (rules.mode == "sp_ep" and kv_x is None
               and q.shape[1] <= 8192)
+    # under a mesh each rank attends its batch rows locally, heads whole
+    # (DTensor cannot place the attention's einsums on heads sharded
+    # beside the batch); without one, batch_local is the call itself
     if use_cp:
-        o = A.cp_attention(q, k, v, causal=causal, prefix_len=prefix_len,
-                           rules=rules)
+        o = batch_local(A.cp_attention, q, k, v, causal=causal,
+                        prefix_len=prefix_len, rules=rules)
     else:
-        o = A.blockwise_attention(q, k, v, causal=causal,
-                                  prefix_len=prefix_len,
-                                  q_block=q_block, kv_block=kv_block)
+        o = batch_local(A.blockwise_attention, q, k, v, causal=causal,
+                        prefix_len=prefix_len, q_block=q_block,
+                        kv_block=kv_block)
     o = A.merge_heads(cfg, o)
     o = rules.constrain(o, "batch", "seq", "act_q")
-    out = o @ p["wo"]
+    out = rows_local(mm, o, p["wo"])
     if return_kv:
         return out, (k, v)
     return out

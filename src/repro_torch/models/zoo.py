@@ -23,11 +23,14 @@ cache is its recurrent states, tuples of layer-stacked tensors. Every
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import NULL_RULES
+from repro_torch.distributed.sharding import (NULL_RULES, replicate_dim,
+                                              rows_local)
 from repro_torch.models import transformer as T
 from repro_torch.models.common import (
     apply_norm, dense_init, dtype_of, embed_tokens, make_embedding,
@@ -54,14 +57,21 @@ def softmax_xent(cfg, logits, targets, rules):
                                 device=logits.device) < cfg.vocab_size
         logits = torch.where(vocab_ok, logits, -1e30)
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, targets.long().clamp(min=0)[..., None])[..., 0]
+    # the target logit is gathered from whole vocab rows (a no-op without
+    # a mesh)
+    tgt = replicate_dim(logits, -1).gather(
+        -1, targets.long().clamp(min=0)[..., None])[..., 0]
     valid = (targets >= 0).float()
-    return ((lse - tgt) * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    # a replicated scalar under a mesh (a partial sum would meet the
+    # replicated aux losses in an add whose backward fails on DTensors)
+    return rules.constrain(((lse - tgt) * valid).sum()
+                           / torch.clamp(valid.sum(), min=1.0))
 
 
 def _logits(cfg, model, x, rules):
     table = model.unemb if hasattr(model, "unemb") else model.emb["tok"]
-    logits = torch.einsum("bse,ve->bsv", x, table).float()
+    logits = rows_local(functools.partial(torch.einsum, "bse,ve->bsv"), x,
+                        table).float()
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return rules.constrain(logits, "batch", "seq", "act_vocab")

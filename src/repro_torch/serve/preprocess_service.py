@@ -9,9 +9,9 @@ chunks, as numpy arrays: what a downstream species classifier or archive
 compaction needs. `result(rid)` pops its record, so that the result map
 cannot grow without bound under sustained traffic.
 
-`device` takes the place of the reference's sharding `rules` (the port
-has no sharding rules yet): None is the card, "cpu" the plain versions.
-Extra keyword arguments go to the plan, so that
+`rules` are the sharding rules, second as in the reference (`NULL_RULES`:
+no mesh); `device` None is the card (or the mesh's device type), "cpu" the
+plain versions. Extra keyword arguments go to the plan, so that
 `PreprocessService(cfg, plan="sharded", shards=4)` serves each pumped
 batch through the multi-shard path. The sharded plan's `transport=` does
 not change serving: a single pumped batch always row-splits in this
@@ -41,20 +41,22 @@ import numpy as np
 from repro_torch.core import scheduler as SCHED
 from repro_torch.core.plans import Preprocessor
 from repro_torch.device import to_host
+from repro_torch.distributed.sharding import NULL_RULES
 from repro_torch.dist.service import pack_result
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import tracing as obs_tracing
 
 
 class PreprocessService:
-    def __init__(self, cfg, device=None, plan="two_phase",
-                 batch_long_chunks=4, pad_multiple=1, pool=None,
+    def __init__(self, cfg, rules=NULL_RULES, plan="two_phase",
+                 batch_long_chunks=4, pad_multiple=1, pool=None, device=None,
                  **plan_kwargs):
         self.cfg = cfg
         self.batch = batch_long_chunks
         self.pool = pool
-        self.pre = Preprocessor(cfg, plan=plan, pad_multiple=pad_multiple,
-                                device=device, **plan_kwargs)
+        self.pre = Preprocessor(cfg, rules, plan=plan,
+                                pad_multiple=pad_multiple, device=device,
+                                **plan_kwargs)
         self._queue = collections.deque()
         self._results = {}
         self._next_id = 0

@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import is_dtensor, place_like
+
 BLOCK = 256
 
 
@@ -80,12 +82,28 @@ def compress_grads_ef(grads, residuals):
     Returns (dequantized f32 grads, new residuals), both keyed as grads."""
     out_g, out_r = {}, {}
     for name, g in grads.items():
-        codes, scale, out_r[name] = quantize_ef(g, residuals[name])
+        r = residuals[name]
+        if is_dtensor(g):
+            # each rank's shard on its own: its blocks are the unsharded
+            # run's only where the shard starts on a block boundary of the
+            # flattened tensor
+            from torch.distributed.tensor import DTensor
+            r = place_like(r, g)
+            codes, scale, res = quantize_ef(g.to_local(), r.to_local())
+            deq = dequantize_block_int8(codes, scale, g.to_local().shape)
+            out_g[name] = DTensor.from_local(deq, g.device_mesh,
+                                             g.placements)
+            out_r[name] = DTensor.from_local(res, g.device_mesh,
+                                             g.placements)
+            continue
+        codes, scale, out_r[name] = quantize_ef(g, r)
         out_g[name] = dequantize_block_int8(codes, scale, g.shape)
     return out_g, out_r
 
 
 def init_residuals(params):
-    """params: {name: tensor} -> {name: f32 zeros of its shape}."""
-    return {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """params: {name: tensor} -> {name: f32 zeros of its shape} (of its
+    placements, for a DTensor)."""
+    return {name: torch.zeros_like(p, dtype=torch.float32,
+                                   requires_grad=False)
             for name, p in params.items()}

@@ -13,7 +13,9 @@ State layout (a dict keyed like the parameters, by parameter name):
 
 `apply_updates` updates the state in place and casts each new master into
 its parameter with `copy_`; nothing in a step reads a value back to the
-host.
+host. Over a mesh every leaf is a DTensor and keeps its placements; the
+row-wise scales of the 8-bit moment are DTensor reductions over whole
+rows, so they equal the unsharded run's.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.distributed.sharding import place_like, whole
 from repro_torch.train import compression as C
 
 
@@ -79,8 +82,12 @@ def init_opt_state(cfg: OptConfig, params):
 
 
 def global_norm(tree):
-    """tree: {name: tensor} -> the f32 L2 norm over every element."""
-    return torch.sqrt(sum(x.float().square().sum() for x in tree.values()))
+    """tree: {name: tensor} -> the f32 L2 norm over every element. A
+    DTensor's sum of squares (a `Partial` sum over its shards) is made whole
+    before the sum, so the norm is a plain tensor, the same on every
+    rank."""
+    return torch.sqrt(sum(whole(x.float().square().sum())
+                          for x in tree.values()))
 
 
 def clip_by_global_norm(grads, max_norm):
@@ -130,7 +137,8 @@ def apply_updates(cfg: OptConfig, params, opt_state, grads):
             masters[name] = new_master
             if quantized:
                 codes, scale = C.quantize_rowwise_int8(m_new)
-                ms[name] = {"codes": codes, "scale": scale}
+                ms[name] = {"codes": place_like(codes, m["codes"]),
+                            "scale": place_like(scale, m["scale"])}
                 vs[name] = v_new.to(torch.bfloat16)
             else:
                 ms[name], vs[name] = m_new, v_new

@@ -1,11 +1,13 @@
-"""The port's language-model configs and mesh-free sharding rules against
-the JAX package's: every arch's fields, parameter counts, padded vocab and
-reduced config, the shape cells, the four sharding mode tables, and the
-ports of the reference's no-mesh rules tests."""
+"""The port's language-model configs and sharding rules against the JAX
+package's: every arch's fields, parameter counts, padded vocab and reduced
+config, the shape cells, the four sharding mode tables, the ports of the
+reference's no-mesh rules tests, and the rules over a mesh resolving (the
+mesh cases against the reference are in test_torch_mesh.py)."""
 import dataclasses
 import importlib
 
 import pytest
+import torch
 
 from repro import configs as RC
 from repro.distributed import sharding as RS
@@ -95,13 +97,24 @@ def test_mode_tables_well_formed():
             assert t["seq"] == ("model",) and t["act_ff"] == ()
 
 
-def test_rules_refuse_a_mesh_and_an_unknown_mode():
-    with pytest.raises(NotImplementedError, match="Queue A item 1"):
-        S.ShardingRules(mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue A item 1"):
-        S.pool_rules(2, meshes=[object()])
+def test_rules_over_a_mesh_resolve_and_an_unknown_mode_raises():
+    """A mesh is accepted (its dim names filter each name's axes, as the
+    reference's axis names do); an unknown mode still raises KeyError."""
+    class FakeMesh:
+        mesh_dim_names = ("data", "model")
+        ndim = 2
+        mesh = torch.arange(4).reshape(2, 2)
+
+    r = S.ShardingRules(FakeMesh(), "fsdp_tp")
+    assert r.spec("batch", "w_embed", "vocab") == ("data", "data", "model")
+    assert r.fingerprint[1] == (("data", "model"), (2, 2), (0, 1, 2, 3))
+    x = torch.ones(3)
+    assert r.constrain(x, "batch") is x       # a plain tensor: as it is
+    assert len(S.pool_rules(2, meshes=[FakeMesh()])) == 2
     with pytest.raises(KeyError, match="unknown sharding mode"):
         S.ShardingRules(mode="dp")
+    with pytest.raises(KeyError):
+        r.spec("no_such_axis")
 
 
 def test_pool_rules_without_a_mesh():

@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_ranks
+
 from repro.configs import ARCHS as RARCHS, reduced as rreduced
 from repro.data.loader import TokenLoader as RTokenLoader
 from repro.distributed.sharding import NULL_RULES as RR
@@ -212,6 +214,15 @@ def test_launch_train_prints_the_reference_line(capsys):
     assert all(np.isfinite(out["losses"]))
 
 
-def test_launch_train_model_parallel_raises():
-    with pytest.raises(NotImplementedError, match="Queue A item 1"):
-        train.main(["--reduced", "--device", "cpu", "--model-parallel", "2"])
+def test_launch_train_model_parallel_over_four_ranks(tmp_path):
+    """`launch.train --model-parallel 2` in a group of 4 gloo ranks: a
+    (2, 2) mesh, the vocab-sharded embedding a DTensor, two steps with the
+    same finite losses on every rank, a checkpoint written by rank 0."""
+    out = torch_ranks.run_ranks(torch_ranks.rank_launch_train, 4, tmp_path,
+                                str(tmp_path / "ckpt"))
+    for r in out:
+        assert r["step"] == 2 and r["dtensor"] and r["mesh"] == (2, 2)
+        assert r["global"] == (512, 64) and r["local"] == (256, 64)
+        assert r["losses"] == out[0]["losses"]
+        assert all(np.isfinite(r["losses"]))
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["step_1", "step_2"]
