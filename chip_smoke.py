@@ -161,10 +161,22 @@ outside a checkout of the repo. Phases, any failure exits non-zero:
      printed beside the lm_train phase's quick run (the same loop with
      plain tensors on the same kind of mesh) and that run's spread; the
      phase's wall.
-  9. one JSON line with every kernel's numbers (its launches summed over
-     the main-path runs, the workers', the example's and the mesh run's
-     included), the whole run's wall, then the card's line and the result
-     line `{"ok": true, "device": {...}}` last.
+  9. matmul_mode: two_phase on batch 0 under backend mode "matmul" (the
+     STFT, iSTFT and fused tail as bf16 matmul-DFTs) and under auto on the
+     card, and under the mode on the CPU: masks exactly equal, the mode's
+     cleaned audio within 2^-6 of the largest sample of auto's and the
+     CPU's (bf16 operands; max and rms printed), its counted call
+     launching the FIR and no STFT or fused-tail kernel; the phase's wall.
+ 10. dryrun, on this machine's CPU: `launch.dryrun`'s audio cells
+     (fused, detect, mmse45 at n_chunks 512) and llama3.2-3b's train_4k
+     and decode_32k at full width on single_pod_16x16 over a fake group of
+     256 ranks, on meta tensors: each record printed, none with an error,
+     FLOPs above 0, the audio cells' FLOPs and bytes equal to what the
+     same code counts on the CPU of the build container; the phase's wall.
+ 11. one JSON line with every kernel's numbers (its launches summed over
+     the main-path runs, the workers', the example's, the mesh run's and
+     the matmul mode's included), the whole run's wall, then the card's
+     line and the result line `{"ok": true, "device": {...}}` last.
 
 It imports only `repro_torch`, `torch` and numpy.
 """
@@ -3019,6 +3031,130 @@ def mesh_phase(torch, np, card, quick):
     return rec["preprocess"]
 
 
+# ------------------------------------------------------------ matmul mode
+# the matmul-DFT mode rounds the DFT's operands to bf16 (the reference's
+# MATMUL_DTYPE): its cleaned audio is held to a bf16 bound, a share of the
+# batch's largest sample, not to the f32 paths' 2e-4 (on the CPU it lies
+# up to 5.8e-3 from the FFT path's, 3.6e-3 of the largest sample)
+MATMUL_REL_TOL = 2.0 ** -6
+
+
+def matmul_mode_phase(torch, np, card):
+    """Phase 9: backend mode "matmul" on the card. two_phase on batch 0 of
+    the seed-25 stream (4 long chunks) under auto and under
+    `backend.use("matmul")`, and the same under the mode on the CPU: the
+    masks of all three exactly equal; the mode's cleaned audio against
+    auto's and against the CPU's within MATMUL_REL_TOL of the largest
+    sample (the max and the share beyond 2e-4 printed); the mode's counted
+    call launches the FIR and no STFT or fused-tail kernel (its gain
+    dispatches by device: the MMSE kernel). Returns that call's
+    {"launches": ...} for the kernels' line."""
+    from repro_torch import kernels
+    from repro_torch.configs import SERF_AUDIO
+    from repro_torch.core.plans import Preprocessor
+    from repro_torch.data.loader import audio_batch_maker
+    from repro_torch.kernels import backend
+    t0 = time.perf_counter()
+    chunks, _ = audio_batch_maker(seed=25, batch_long_chunks=4)(0)
+    pre = Preprocessor(SERF_AUDIO, plan="two_phase")
+    pre(chunks)                                   # warm-up
+    auto = pre(chunks)
+    with backend.use("matmul"):
+        pre(chunks)                               # warm-up: the bases
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        mm = pre(chunks)
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        cpu = Preprocessor(SERF_AUDIO, plan="two_phase", device="cpu")(
+            chunks)
+    check(backend.get_mode() == "auto", "matmul_mode: the mode leaked")
+    for m in ("keep", "rain", "silence", "cicada15"):
+        a = getattr(auto.det, m).cpu()
+        check(torch.equal(a, getattr(mm.det, m).cpu()),
+              f"matmul_mode: the {m} mask differs from auto's")
+        check(torch.equal(a, getattr(cpu.det, m)),
+              f"matmul_mode: the {m} mask differs from the CPU's")
+    check(mm.n_kept == auto.n_kept > 0 and mm.cleaned.shape ==
+          auto.cleaned.shape, f"matmul_mode: kept {mm.n_kept}, auto "
+          f"{auto.n_kept}")
+    scale = float(np.abs(auto.cleaned).max())
+    rec = {"kept": mm.n_kept, "chunks": int(mm.det.keep.numel()),
+           "launches": counts, "max_abs_sample": scale}
+    for label, other in (("vs_auto", auto.cleaned),
+                         ("vs_cpu_matmul", cpu.cleaned)):
+        d = np.abs(mm.cleaned - other)
+        rec[label] = {"max_abs_err": float(d.max()),
+                      "rms_err": float(np.sqrt((d.astype(np.float64) ** 2)
+                                               .mean())),
+                      "beyond_2e-4": float((d > 2e-4 + 2e-4 * np.abs(other))
+                                           .mean())}
+        check(rec[label]["max_abs_err"] <= MATMUL_REL_TOL * scale,
+              f"matmul_mode: cleaned audio {label} "
+              f"{rec[label]['max_abs_err']:.3g} > {MATMUL_REL_TOL} x "
+              f"{scale:.3g}")
+    check(counts["fir_hpf"] >= 1 and counts["stft_dft"] == 0
+          and counts["fused_tail"] == 0 and counts["stft_dft_generic"] == 0
+          and counts["fused_tail_generic"] == 0,
+          f"matmul_mode: launches {counts}")
+    rec["wall_s"] = time.perf_counter() - t0
+    print(f"matmul_mode: two_phase batch 0 under the matmul-DFT mode on "
+          f"{card}: masks equal to auto's and the CPU's, cleaned audio "
+          f"{rec['vs_auto']['max_abs_err']:.3g} from auto's (rms "
+          f"{rec['vs_auto']['rms_err']:.3g}); phase wall "
+          f"{rec['wall_s']:.1f} s", flush=True)
+    print(json.dumps({"matmul_mode": rec}), flush=True)
+    return {"launches": counts}
+
+
+# ----------------------------------------------------------------- dry-run
+# the audio cells' per-device matmul FLOPs and bytes at n_chunks 512 on
+# single_pod_16x16, as `launch.dryrun` counts them on the CPU under torch
+# 2.13.0+cpu: this machine's torch must count the same
+DRYRUN_AUDIO = {"pipeline_fused": (13910753280.0, 196319872.0),
+                "pipeline_detect": (6956433408.0, 98176384.0),
+                "pipeline_mmse45": (2897633280.0, 41276608.0)}
+# the model cells run here; prefill_32k (~1,050 causal block pairs a
+# layer, each through the meta tensors' Python kernels: 123-147 s on a CPU)
+# is left to `python -m repro_torch.launch.dryrun --shape prefill_32k`
+DRYRUN_CELLS = ("train_4k", "decode_32k")
+
+
+def dryrun_phase(card):
+    """Phase 10: the dry-run on this machine's CPU. `launch.dryrun`'s three
+    audio cells at the reference's n_chunks (512) and llama3.2-3b's
+    DRYRUN_CELLS at full width, on single_pod_16x16 over a fake group of
+    256 ranks, each run whole on meta tensors under the cost counter: every
+    record printed; no record with an error, every count of FLOPs above 0,
+    the audio cells' FLOPs and bytes equal to DRYRUN_AUDIO; the group
+    destroyed after it."""
+    import torch.distributed as tdist
+
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    recs = dryrun.run_mesh("single_pod_16x16", [LM_ARCH], DRYRUN_CELLS,
+                           audio=True,
+                           log=lambda s: print(f"dryrun: {s}", flush=True))
+    check(not tdist.is_initialized(), "dryrun: the fake group is left")
+    for rec in recs:
+        print(json.dumps({"dryrun": rec}), flush=True)
+    for rec in recs:
+        tag = f"{rec['arch']} x {rec['shape']}"
+        check("error" not in rec, f"dryrun: {tag}: {rec.get('error')}")
+        check(rec["flops_per_device"] > 0, f"dryrun: {tag}: no FLOPs")
+        want = DRYRUN_AUDIO.get(rec["shape"])
+        if want is not None:
+            got = (rec["flops_per_device"], rec["bytes_per_device"])
+            check(got == want, f"dryrun: {tag}: counted {got}, the CPU "
+                  f"run of the same code {want}")
+    check(len(recs) == 3 + len(DRYRUN_CELLS), f"dryrun: {len(recs)} records")
+    wall = time.perf_counter() - t0
+    print(f"dryrun: {len(recs)} cells on single_pod_16x16 (256 fake ranks) "
+          f"on the CPU of the machine of {card}: "
+          + ", ".join(f"{r['shape']} {r['lower_s']} s" for r in recs)
+          + f"; phase wall {wall:.1f} s", flush=True)
+
+
 # ------------------------------------------------------------------- main
 
 def main():
@@ -3068,6 +3204,9 @@ def main():
         runs["preprocess_and_train_torch"] = train_rec["example"]
         runs["mesh_two_phase"] = mesh_phase(
             torch, np, card_line, train_rec["full_width_bf16"]["quick"])
+        runs["matmul_mode_two_phase"] = matmul_mode_phase(torch, np,
+                                                          card_line)
+        dryrun_phase(card_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -91,6 +91,7 @@ from repro_torch.dist.data_plane import StoreDataPlane
 from repro_torch.dist.service import QueueService, pack_result, unpack_result
 from repro_torch.dist.transport import ProcTransport, TcpTransport
 from repro_torch.ft.failure import StragglerDetector
+from repro_torch.kernels import backend
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import tracing as obs_tracing
 from repro_torch.store import ChunkStore, RunJournal, content_key
@@ -959,11 +960,13 @@ class ShardedPlan(TwoPhasePlan):
     # -- proc master: real worker processes over the transport --------------
     def _proc_setup(self):
         """The picklable blob workers build their plan from: the port's
-        config, stage names, pad/bucket and the device type to run on."""
+        config, stage names, pad/bucket, the device type to run on and the
+        backend mode."""
         return {"cfg": self.graph.cfg, "stages": list(self.graph.names),
                 "source_channels": self.graph.source_geom.channels,
                 "pad_multiple": self.pad_multiple, "bucket": self.bucket,
-                "device": self.device.type}
+                "device": self.device.type,
+                "backend_mode": backend.get_mode()}
 
     def _run_proc(self, pool, queue):
         t_start = time.monotonic()
@@ -995,7 +998,8 @@ class ShardedPlan(TwoPhasePlan):
             # CachedPlan's value identity, so that raw entries dedup across
             # runs of the same graph on the same device type
             dp = StoreDataPlane(dp, graph_fingerprint=self.graph.fingerprint,
-                                framework_tag=f"torch-{self.device.type}")
+                                framework_tag=backend.framework_tag(
+                                    self.device))
         service = QueueService(queue, fetch_item=fetch,
                                setup=self._proc_setup(),
                                monitor=self.monitor,
@@ -1187,7 +1191,8 @@ class CachedPlan(ExecutionPlan):
     """Content-addressed caching and resumability around any inner plan.
 
     Every batch is keyed by the content hash of (raw chunk bytes, graph
-    fingerprint, framework tag `torch-<device type>`) and looked up in the
+    fingerprint, framework tag `torch-<device type>`, with `-matmul` under
+    backend mode "matmul": `backend.framework_tag`) and looked up in the
     `ChunkStore` before any dispatch; only misses flow through the inner
     plan (one sub-stream); results merge back in stream order, and fresh
     ones are written to the store as the inner plan emits them.
@@ -1239,7 +1244,7 @@ class CachedPlan(ExecutionPlan):
 
     def _key(self, chunks_np):
         return content_key(chunks_np, self.graph.fingerprint,
-                           f"torch-{self.device.type}")
+                           backend.framework_tag(self.device))
 
     def _result(self, arrays, meta, wid, extra) -> BatchResult:
         det, f = unpack_result({**arrays, **meta})
@@ -1354,6 +1359,22 @@ PLANS = {p.name: p for p in (FusedPlan, TwoPhasePlan, StreamingPlan,
                              AsyncPlan, ShardedPlan, CachedPlan)}
 
 
+def _phase_fn(kind, graph: PipelineGraph, rules):
+    """The plain callable of one phase over `graph` and `rules`, not run:
+    what the dry-run counts (`launch/dryrun.py`)."""
+    if kind == "fused":
+        return lambda a: graph.fused(a, rules)
+    if kind == "detect":
+        return lambda a: graph.detection(a, rules)
+    if kind in ("tail", "mmse"):
+        return lambda w: graph.tail(w, rules)
+    if kind == "tail_idx":
+        return lambda w, i: graph.tail_indexed(w, i, rules)
+    if kind == "tail_idx_fused":
+        return lambda w, i: graph.tail_indexed_fused(w, i, rules)
+    raise KeyError(f"unknown phase {kind!r}")
+
+
 class Preprocessor:
     """The facade every entry point uses.
 
@@ -1403,3 +1424,9 @@ class Preprocessor:
         runs it the same way. For a graph without a removal point this is
         the whole chain (`PipelineGraph.detection`)."""
         return self.plan.detect(audio)
+
+    def phase_fn(self, kind):
+        """The phase callable ('fused' | 'detect' | 'tail' / 'mmse' |
+        'tail_idx' | 'tail_idx_fused') over the facade's graph and rules,
+        not run; see launch/dryrun.py."""
+        return _phase_fn(kind, self.graph, self.rules)

@@ -66,6 +66,7 @@ def run_worker(master, shard=None, lease_items=1, poll_s=0.05,
 
     from repro_torch import kernels
     from repro_torch.core.graph import PipelineGraph
+    from repro_torch.kernels import backend
     from repro_torch.core.plans import TwoPhasePlan
     from repro_torch.dist.service import pack_result
     from repro_torch.dist.transport import ProcTransport
@@ -88,6 +89,8 @@ def run_worker(master, shard=None, lease_items=1, poll_s=0.05,
         tracer = obs_tracing.Tracer(**spec["trace"])
         if not obs_tracing.get_tracer().enabled:
             obs_tracing.set_tracer(tracer)
+    if spec.get("backend_mode"):
+        backend.set_mode(spec["backend_mode"])
     graph = PipelineGraph(spec["cfg"], spec.get("stages"),
                           spec.get("source_channels", 2))
     # the blob's device or an error: resolve_device raises on "cuda"

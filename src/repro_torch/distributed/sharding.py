@@ -248,6 +248,84 @@ def batch_local(fn, *xs, **kw):
     return DTensor.from_local(fn(*local, **kw), x0.device_mesh, placements)
 
 
+def whole_heads(x, head_dim):
+    """`x` (..., heads * head_dim) with its last dim made whole unless
+    DTensor shards it in whole heads (a reshape into heads cannot split
+    one); anything else as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Shard
+    n = 1
+    for i, pl in enumerate(x.placements):
+        if isinstance(pl, Shard) and pl.dim in (-1, x.ndim - 1):
+            n *= x.device_mesh.size(i)
+    if n == 1 or (x.shape[-1] // head_dim) % n == 0:
+        return x
+    return replicate_dim(x, -1)
+
+
+def heads_local(fn, q, k, v, **kw):
+    """`fn(q, k, v, **kw)` for an attention, q (B,Sq,Hkv,G,D) and k, v
+    (B,Skv,Hkv,D), on each rank's batch rows and its block of the heads:
+    q's batch sharding is kept and the mesh dims that do not shard the
+    batch spread the heads, its KV heads where they divide (k and v with
+    them), else its query heads of a group (k and v whole). The result is
+    the DTensor of q's placements, so no rank attends a head another rank
+    attends. Where neither divides and one mesh dim spreads the heads,
+    each rank takes ceil(H / n) query heads (torch.chunk's blocks: the
+    last ranks may take none), each with its KV head, and the result is
+    gathered whole over that dim. Otherwise `batch_local` (heads whole).
+    Without DTensors, `fn(q, k, v, **kw)`."""
+    if not is_dtensor(q):
+        return fn(q, k, v, **kw)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = q.device_mesh
+    batch = [isinstance(pl, Shard) and pl.dim == 0 for pl in q.placements]
+    free = [i for i in range(mesh.ndim) if not batch[i] and mesh.size(i) > 1]
+    n = 1
+    for i in free:
+        n *= mesh.size(i)
+    Hkv, G = q.shape[2], q.shape[3]
+    even = Hkv % n == 0 or G % n == 0
+    if n == 1 or not (even or len(free) == 1):
+        return batch_local(fn, q, k, v, **kw)
+
+    def placed(head_dim, shard_heads):
+        return tuple(Shard(0) if batch[i]
+                     else Shard(head_dim) if shard_heads and i in free
+                     else Replicate() for i in range(mesh.ndim))
+
+    def local(t, pl):
+        # a tensor whole over the dims that spread the heads is used by
+        # each rank for its own heads only: its gradient there is a
+        # partial sum
+        grad = tuple(Partial() if i in free and isinstance(p, Replicate)
+                     else p for i, p in enumerate(pl))
+        return t.redistribute(mesh, pl).to_local(grad_placements=grad)
+
+    if even:
+        q_dim, kv_head = (2, True) if Hkv % n == 0 else (3, False)
+        q_pl, kv_pl = placed(q_dim, True), placed(2, kv_head)
+        out = fn(local(q, q_pl), local(k, kv_pl), local(v, kv_pl), **kw)
+        return DTensor.from_local(out, mesh, q_pl)
+    # uneven: this rank's block of the flattened query heads, each with
+    # its own KV head (a group of one)
+    rows = placed(2, False)
+    ql, kl, vl = (local(t, rows) for t in (q, k, v))
+    B, Sq, _, _, D = ql.shape
+    H = Hkv * G
+    per = -(-H // n)
+    h0 = min(mesh.get_local_rank(free[0]) * per, H)
+    heads = torch.arange(h0, min(h0 + per, H), device=ql.device)
+    out = fn(ql.reshape(B, Sq, H, 1, D)[:, :, h0:h0 + heads.numel()],
+             kl[:, :, heads // G], vl[:, :, heads // G], **kw)
+    shape = (q.shape[0], Sq, H, 1, D)
+    stride = (Sq * H * D, H * D, D, D, 1)
+    o = DTensor.from_local(out, mesh, placed(2, True), run_check=False,
+                           shape=torch.Size(shape), stride=stride)
+    return o.redistribute(mesh, rows).reshape(q.shape)
+
+
 def rows_local(fn, x, *ws):
     """`fn(x, *ws)` for an op that contracts the last dim of `x` with the
     whole of each `ws` (a projection). Where `x` is a DTensor sharded on
@@ -257,7 +335,7 @@ def rows_local(fn, x, *ws):
     torch version (2.11 refuses it). Otherwise `fn(x, *ws)` as it is."""
     if not is_dtensor(x):
         return fn(x, *ws)
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     lead = {pl.dim for pl in x.placements
             if isinstance(pl, Shard) and pl.dim < x.ndim - 1}
     if len(lead) < 2:
@@ -265,8 +343,12 @@ def rows_local(fn, x, *ws):
     mesh = x.device_mesh
     placements = tuple(pl if isinstance(pl, Shard) and pl.dim < x.ndim - 1
                        else Replicate() for pl in x.placements)
-    whole_ws = [w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
-                for w in ws]
+    # each rank's weight gradient comes from its own rows only: a partial
+    # sum over the mesh dims that split the rows
+    grads = tuple(Partial() if isinstance(pl, Shard) else Replicate()
+                  for pl in placements)
+    whole_ws = [w.redistribute(mesh, [Replicate()] * mesh.ndim)
+                .to_local(grad_placements=grads) for w in ws]
     out = fn(x.redistribute(mesh, placements).to_local(), *whole_ws)
     return DTensor.from_local(out, mesh, placements)
 

@@ -2,7 +2,8 @@
 decimate (the pipeline's downsample + HPF stage).
 
 Dispatch goes by the tensor's device: a CPU tensor runs `ref.fir_ref`, a
-CUDA tensor launches `csrc/fir.cu`. The taps stay on the host: the kernel
+CUDA tensor launches `csrc/fir.cu`, a meta tensor runs `ref.fir_ref` for
+its shape (in every backend mode). The taps stay on the host: the kernel
 takes them in its launch parameters as the polyphase table of
 `tiling.phase_taps`.
 """
@@ -14,6 +15,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.kernels import backend
 from repro_torch.kernels._build import CudaKernel, require_cuda
 from repro_torch.kernels.fir_hpf import ref as R
 from repro_torch.kernels.fir_hpf import tiling
@@ -67,10 +69,8 @@ def fir_cuda(x, taps, stride=1):
 
 
 def _filter(x, design_fn, design, stride):
-    if x.device.type == "cpu":
+    if backend.plain_on(x.device):
         return R.fir_ref(x, design_fn(*design), stride)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     return fir_cuda(x, taps_on(torch.device("cpu"), design_fn, design),
                     stride)
 

@@ -7,7 +7,11 @@ It takes the STFT kernel's framing (`fft_tables.check_geometry`): windows
 of 128, 256 and 512 run the warp-specialised FFT kernel (`KERNEL`), the
 other even windows up to 510 the direct-DFT kernel tiled by bins
 (`DFT_KERNEL`), one entry point with two launch counts. `finish` is the irfft overlap-add
-outside the kernel, as in the reference.
+outside the kernel, as in the reference. A meta tensor runs the plain
+version (shapes only). Under backend mode "matmul" `fused_tail` runs
+`ref.fused_tail_matmul` on every device and launches no fused-tail
+kernel; its high-pass and gain go through their own wrappers, which
+dispatch by device.
 """
 from __future__ import annotations
 
@@ -15,10 +19,13 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import backend
 from repro_torch.kernels._build import CudaKernel, require_cuda
 from repro_torch.kernels.fir_hpf import ref as FR
+from repro_torch.kernels.fir_hpf import ops as fir_ops
 from repro_torch.kernels.fir_hpf.ops import taps_on
 from repro_torch.kernels.fused_tail import ref as R
+from repro_torch.kernels.mmse_stsa import ops as mmse_ops
 from repro_torch.kernels.stft_dft import fft_tables as FT
 from repro_torch.kernels.stft_dft import ref as SR
 from repro_torch.kernels.stft_dft.ops import tables_on
@@ -68,10 +75,8 @@ def fused_tail_spectrum_cuda(wave, idx, cfg, hpf=False):
 def fused_tail_spectrum(wave, idx, cfg, hpf=False):
     """(B, S) batch + (R,) padded survivor indices -> gain-filtered
     spectrum, complex (R, Fv, K), by the device of `wave`."""
-    if wave.device.type == "cpu":
+    if backend.plain_on(wave.device):
         return R.fused_tail_spectrum_ref(wave, idx, cfg, hpf)
-    if wave.device.type != "cuda":
-        raise ValueError(f"unsupported device {wave.device}")
     return fused_tail_spectrum_cuda(wave, idx, cfg, hpf)
 
 
@@ -84,5 +89,12 @@ def finish(spec, S, cfg):
 def fused_tail(wave, idx, cfg, hpf=False):
     """The fused survivor tail: (B, S) batch + (R,) padded survivor index
     vector -> cleaned (R, S)."""
+    if backend.matmul_dft():
+        return R.fused_tail_matmul(
+            wave, idx, cfg, hpf,
+            highpass=lambda x: fir_ops.highpass(
+                x, cfg.hpf_cutoff_hz, cfg.target_rate_hz, cfg.hpf_taps),
+            gain=lambda p, n: mmse_ops.mmse_gain(
+                p, n, cfg.mmse_alpha, cfg.mmse_gain_floor))
     return finish(fused_tail_spectrum(wave, idx, cfg, hpf), wave.shape[1],
                   cfg)

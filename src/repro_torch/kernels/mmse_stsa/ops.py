@@ -1,7 +1,8 @@
 """Public wrapper for the MMSE-STSA gain kernel.
 
 Dispatch goes by the tensor's device: a CPU tensor runs
-`ref.mmse_stsa_gain_ref`, a CUDA tensor launches `csrc/mmse.cu`.
+`ref.mmse_stsa_gain_ref`, a CUDA tensor launches `csrc/mmse.cu`, a meta
+tensor runs the plain version for its shape (in every backend mode).
 """
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import backend
 from repro_torch.kernels._build import MAX_GRID_Y, CudaKernel, require_cuda
 from repro_torch.kernels.mmse_stsa import ref as R
 
@@ -38,10 +40,8 @@ def mmse_gain_cuda(power, noise_psd, alpha=0.98, gain_floor=0.1):
 
 def mmse_gain(power, noise_psd, alpha=0.98, gain_floor=0.1):
     """power: (B, F, K) |Y|^2; noise_psd: (B, K) -> gains (B, F, K)."""
-    if power.device.type == "cpu":
+    if backend.plain_on(power.device):
         return R.mmse_stsa_gain_ref(power, noise_psd, alpha, gain_floor)
-    if power.device.type != "cuda":
-        raise ValueError(f"unsupported device {power.device}")
     return mmse_gain_cuda(power, noise_psd, alpha, gain_floor)
 
 

@@ -7,7 +7,9 @@ it takes hop = window/2 with an even window of 4 to 512 samples
 (`fft_tables.check_geometry`) and raises `ValueError` on anything else.
 Windows of 128, 256 and 512 run the FFT (`KERNEL`), the others the direct
 DFT on the tensor cores (`DFT_KERNEL`): one entry point, two launch
-counts.
+counts. A meta tensor runs the plain version (shapes only). Under backend
+mode "matmul" (`kernels/backend.py`) `stft` and `istft` take the
+matmul-DFT forms on every device and launch nothing.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import backend
 from repro_torch.kernels._build import MAX_GRID_Y, CudaKernel, require_cuda
 from repro_torch.kernels.stft_dft import fft_tables as FT
 from repro_torch.kernels.stft_dft import ref as R
@@ -56,11 +59,16 @@ def stft_cuda(x, window=256, hop=128):
 
 
 def stft(x, window=256, hop=128):
-    """x: (B, S) -> complex (B, F, window//2+1), by the tensor's device."""
-    if x.device.type == "cpu":
+    """x: (B, S) -> complex (B, F, window//2+1), by the tensor's device
+    (the matmul-DFT form under mode "matmul")."""
+    if backend.matmul_dft():
+        # the reference's shape: the DFT over the tile-padded row, then
+        # its F valid frames
+        F = R.num_frames(x.shape[-1], window, hop)
+        xp = R.pad_for_stft(x, window, hop)
+        return R.stft_matmul(xp, window, hop)[:, :F]
+    if backend.plain_on(x.device):
         return R.stft_ref(x, window, hop)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     return stft_cuda(x, window, hop)
 
 
@@ -71,5 +79,8 @@ def stft_power(x, window=256, hop=128):
 
 
 def istft(z, n_samples, window=256, hop=128):
-    """Inverse STFT (irfft overlap-add; cuFFT on the card)."""
+    """Inverse STFT (irfft overlap-add, cuFFT on the card; the inverse DFT
+    as a matmul under mode "matmul")."""
+    if backend.matmul_dft():
+        return R.istft_matmul(z, n_samples, window, hop)
     return R.istft_ref(z, n_samples, window, hop)

@@ -61,10 +61,14 @@ def _make_mesh(shape, axes, device_type):
     return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
+    """`device_type` None: the group's (a fake group's is "cpu"); the
+    dry-run asks for "meta", the device of its tensors, so that DTensor
+    redistributes as on a card mesh (a CPU mesh gathers where a card mesh
+    exchanges all to all)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _make_mesh(shape, axes, _device_type(None))
+    return _make_mesh(shape, axes, device_type or _device_type(None))
 
 
 def make_local_mesh(model_parallel=1, device=None):

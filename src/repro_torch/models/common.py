@@ -32,16 +32,23 @@ def param(t) -> nn.Parameter:
 
 
 # ---------------------------------------------------------------- init helpers
+def _draw(generator, shape):
+    """N(0, 1) f32 of `shape` on the generator's device; on the meta device
+    (`zoo.build_meta_model`) a tensor of the shape, with nothing drawn."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=generator.device)
+
+
 def dense_init(generator, fan_in, shape, dtype):
     """N(0, 1/fan_in) drawn in f32 on the generator's device, then cast."""
-    x = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device)
+    x = _draw(generator, shape)
     return param((x * (1.0 / np.sqrt(fan_in))).to(dtype))
 
 
 def embed_init(generator, shape, dtype):
-    x = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device)
+    x = _draw(generator, shape)
     return param((x * 0.02).to(dtype))
 
 

@@ -20,7 +20,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import batch_local, rows_local
+from repro_torch.distributed.sharding import (batch_local, heads_local,
+                                              rows_local, whole_heads)
 from repro_torch.models import attention as A
 from repro_torch.models.common import apply_norm, apply_rope, make_norm_params
 from repro_torch.models.mlp import apply_mlp, init_mlp, mlp_specs
@@ -46,6 +47,7 @@ def attn_sublayer(cfg, p, x, positions, rules, *, causal=True, prefix_len=0,
                         "act_kv")
     v = rules.constrain(rows_local(mm, kv_in, p["wv"]), "batch", "seq",
                         "act_kv")
+    q, k, v = (whole_heads(t, cfg.head_dim) for t in (q, k, v))
     q, k, v = A.split_heads(cfg, q, k, v)
     if cfg.use_rope:
         kv_pos = positions if kv_positions is None else kv_positions
@@ -55,19 +57,24 @@ def attn_sublayer(cfg, p, x, positions, rules, *, causal=True, prefix_len=0,
         k = apply_rope(k, kv_pos, cfg.rope_theta)
     use_cp = (rules.mode == "sp_ep" and kv_x is None
               and q.shape[1] <= 8192)
-    # under a mesh each rank attends its batch rows locally, heads whole
-    # (DTensor cannot place the attention's einsums on heads sharded
-    # beside the batch); without one, batch_local is the call itself
+    # under a mesh each rank attends its batch rows and its block of the
+    # heads locally (DTensor cannot place the attention's einsums on heads
+    # sharded beside the batch); without one, the call itself
     if use_cp:
         o = batch_local(A.cp_attention, q, k, v, causal=causal,
                         prefix_len=prefix_len, rules=rules)
     else:
-        o = batch_local(A.blockwise_attention, q, k, v, causal=causal,
+        o = heads_local(A.blockwise_attention, q, k, v, causal=causal,
                         prefix_len=prefix_len, q_block=q_block,
                         kv_block=kv_block)
     o = A.merge_heads(cfg, o)
     o = rules.constrain(o, "batch", "seq", "act_q")
-    out = rows_local(mm, o, p["wo"])
+    # the output projection's pending sum over the sharded heads completed
+    # here, as the residual stream's placement: the norm and the MLP after
+    # it then see whole rows, not a partial sum they would gather weights
+    # for (a no-op without a mesh)
+    out = rules.constrain(rows_local(mm, o, p["wo"]), "batch", "seq",
+                          "embed")
     if return_kv:
         return out, (k, v)
     return out
@@ -81,7 +88,7 @@ def attn_decode_sublayer(cfg, p, x, k_cache, v_cache, pos, rules, *,
     (unless `cross` or not `update_cache`); pos: int. Returns
     (out (B,1,E), k_cache, v_cache)."""
     B = x.shape[0]
-    q = x @ p["wq"]                                           # (B,1,q_dim)
+    q = whole_heads(x @ p["wq"], cfg.head_dim)                # (B,1,q_dim)
     G = cfg.num_heads // cfg.num_kv_heads
     qh = q.reshape(B, 1, cfg.num_kv_heads * G, cfg.head_dim)
     if cfg.use_rope:
@@ -89,8 +96,10 @@ def attn_decode_sublayer(cfg, p, x, k_cache, v_cache, pos, rules, *,
         qh = apply_rope(qh, pos_arr, cfg.rope_theta)
     qh = qh.reshape(B, cfg.num_kv_heads, G, cfg.head_dim)
     if not cross and update_cache:
-        k_new = (x @ p["wk"]).reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
-        v_new = (x @ p["wv"]).reshape(B, 1, cfg.num_kv_heads, cfg.head_dim)
+        k_new = whole_heads(x @ p["wk"], cfg.head_dim).reshape(
+            B, 1, cfg.num_kv_heads, cfg.head_dim)
+        v_new = whole_heads(x @ p["wv"], cfg.head_dim).reshape(
+            B, 1, cfg.num_kv_heads, cfg.head_dim)
         if cfg.use_rope:
             k_new = apply_rope(k_new, pos_arr, cfg.rope_theta)
         k_cache[:, pos] = k_new[:, 0]
@@ -99,7 +108,9 @@ def attn_decode_sublayer(cfg, p, x, k_cache, v_cache, pos, rules, *,
     o = A.decode_attention(qh, k_cache.to(x.dtype), v_cache.to(x.dtype),
                            att_pos)
     o = o.reshape(B, 1, cfg.q_dim)
-    return o @ p["wo"], k_cache, v_cache
+    # the pending sum over sharded heads completed, as in attn_sublayer
+    return (rules.constrain(o @ p["wo"], "batch", "seq", "embed"), k_cache,
+            v_cache)
 
 
 # ----------------------------------------------------------- layer definitions
@@ -192,7 +203,8 @@ def decode_dense_layer(cfg, p, x, k_cache, v_cache, pos, rules,
         x = x + o
     h = apply_norm(cfg, p["ln2"], x)
     out, _ = _ffn(cfg, p, h, rules)
-    return (x + out).to(h.dtype), k_cache, v_cache
+    x = rules.constrain(x + out, "batch", "seq", "embed")
+    return x.to(h.dtype), k_cache, v_cache
 
 
 # ------------------------------------------------------------ stack runners

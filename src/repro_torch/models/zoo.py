@@ -29,8 +29,8 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import (NULL_RULES, replicate_dim,
-                                              rows_local)
+from repro_torch.distributed.sharding import (NULL_RULES, batch_local,
+                                              replicate_dim, rows_local)
 from repro_torch.models import transformer as T
 from repro_torch.models.common import (
     apply_norm, dense_init, dtype_of, embed_tokens, make_embedding,
@@ -57,10 +57,12 @@ def softmax_xent(cfg, logits, targets, rules):
                                 device=logits.device) < cfg.vocab_size
         logits = torch.where(vocab_ok, logits, -1e30)
     lse = torch.logsumexp(logits, dim=-1)
-    # the target logit is gathered from whole vocab rows (a no-op without
-    # a mesh)
-    tgt = replicate_dim(logits, -1).gather(
-        -1, targets.long().clamp(min=0)[..., None])[..., 0]
+    # the target logit is gathered on each rank's rows from whole vocab
+    # rows: DTensor's own gather on rows sharded by the batch builds its
+    # backward's gradient at the logits' global shape on every rank (538
+    # GB for llama3.2-3b's train_4k over 256 ranks); a plain gather
+    # without a mesh
+    tgt = batch_local(_target_logit, logits, targets.long().clamp(min=0))
     valid = (targets >= 0).float()
     # a replicated scalar under a mesh (a partial sum would meet the
     # replicated aux losses in an add whose backward fails on DTensors)
@@ -68,8 +70,18 @@ def softmax_xent(cfg, logits, targets, rules):
                            / torch.clamp(valid.sum(), min=1.0))
 
 
+def _target_logit(logits, targets):
+    return logits.gather(-1, targets[..., None])[..., 0]
+
+
 def _logits(cfg, model, x, rules):
     table = model.unemb if hasattr(model, "unemb") else model.emb["tok"]
+    if rules.mesh is not None and rules.spec("act_vocab")[0] is None:
+        # logits wanted whole over the vocab (zero3, sp_ep): the table made
+        # whole first, so each rank computes its rows' logits; DTensor
+        # would otherwise gather the rows, shard the vocab and then gather
+        # every row's logits to re-shard them by rows
+        table = replicate_dim(replicate_dim(table, 0), 1)
     logits = rows_local(functools.partial(torch.einsum, "bse,ve->bsv"), x,
                         table).float()
     if cfg.logit_softcap:
@@ -569,17 +581,40 @@ class XLSTMLM(BaseModel):
         return logits, caches
 
 
+def _model_class(cfg):
+    if cfg.family in ("dense", "moe", "vlm"):
+        return DecoderLM
+    if cfg.family == "audio":
+        return EncDecLM
+    if cfg.family == "hybrid":
+        return HybridLM
+    if cfg.family == "ssm":
+        return XLSTMLM
+    raise KeyError(cfg.family)
+
+
 def build_model(cfg, device=None, generator=None):
     """The model for `cfg` on `device` (None: the card; raises without one),
     its parameters drawn from `generator` (None: one seeded 0)."""
-    if cfg.family in ("dense", "moe", "vlm"):
-        cls = DecoderLM
-    elif cfg.family == "audio":
-        cls = EncDecLM
-    elif cfg.family == "hybrid":
-        cls = HybridLM
-    elif cfg.family == "ssm":
-        cls = XLSTMLM
-    else:
-        raise KeyError(cfg.family)
-    return cls(cfg, device=device, generator=generator)
+    return _model_class(cfg)(cfg, device=device, generator=generator)
+
+
+class _MetaDraws:
+    """Stands in for a generator on the meta device: every draw is a meta
+    tensor of its shape (`common.dense_init`), nothing is drawn."""
+    device = torch.device("meta")
+
+
+def build_meta_model(cfg):
+    """The model for `cfg` with every parameter and buffer a meta tensor of
+    its shape and dtype: nothing drawn, nothing allocated. Only the
+    dry-run builds one (`launch/dryrun.py`); every entry point builds its
+    model on the card or the CPU with `build_model`."""
+    cls = _model_class(cfg)
+    model = cls.__new__(cls)
+    nn.Module.__init__(model)
+    model.cfg = cfg
+    model.device = torch.device("meta")
+    with torch.no_grad():
+        model._build(_MetaDraws())
+    return model

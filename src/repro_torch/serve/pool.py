@@ -49,6 +49,7 @@ from repro_torch.dist.transport import (InProcTransport, ProcTransport,
                                         TcpTransport)
 from repro_torch.dist.worker import run_worker
 from repro_torch.ft.failure import StragglerDetector
+from repro_torch.kernels import backend
 from repro_torch.obs import metrics as obs_metrics
 
 
@@ -133,13 +134,14 @@ class WorkerPool:
             lease_timeout_s = ShardedPlan.default_lease_timeout(transport)
         self.queue = StandingWorkQueue(lease_timeout_s=lease_timeout_s)
         # the port's blob, as ShardedPlan._proc_setup ships it: the device
-        # type to run on in place of the reference's backend mode
+        # type to run on and the backend mode
         self._setup = {"cfg": cfg,
                        "stages": list(stages) if stages else None,
                        "source_channels": int(source_channels),
                        "pad_multiple": int(pad_multiple),
                        "bucket": bucket,
-                       "device": self.device.type}
+                       "device": self.device.type,
+                       "backend_mode": backend.get_mode()}
         straggler = StragglerDetector(
             factor=float(straggler_factor),
             min_history=int(straggler_min_history)) if speculate else None
@@ -149,7 +151,7 @@ class WorkerPool:
             graph = PipelineGraph(cfg, stages, source_channels)
             store = StoreDataPlane(
                 store, graph_fingerprint=graph.fingerprint,
-                framework_tag=f"torch-{self.device.type}")
+                framework_tag=backend.framework_tag(self.device))
         self.service = QueueService(self.queue, fetch_item=self._fetch,
                                     setup=self._setup, monitor=monitor,
                                     telemetry=telemetry,

@@ -84,21 +84,32 @@ def compress_grads_ef(grads, residuals):
     for name, g in grads.items():
         r = residuals[name]
         if is_dtensor(g):
-            # each rank's shard on its own: its blocks are the unsharded
-            # run's only where the shard starts on a block boundary of the
-            # flattened tensor
-            from torch.distributed.tensor import DTensor
-            r = place_like(r, g)
-            codes, scale, res = quantize_ef(g.to_local(), r.to_local())
-            deq = dequantize_block_int8(codes, scale, g.to_local().shape)
-            out_g[name] = DTensor.from_local(deq, g.device_mesh,
-                                             g.placements)
-            out_r[name] = DTensor.from_local(res, g.device_mesh,
-                                             g.placements)
+            # the blocks of 256 are those of the whole flattened tensor, as
+            # in the reference's one jitted step: gather the leaf whole,
+            # quantize it there and keep this rank's block of the results
+            # (one whole leaf live at a time)
+            out_g[name], out_r[name] = _ef_whole(g, place_like(r, g))
             continue
         codes, scale, out_r[name] = quantize_ef(g, r)
         out_g[name] = dequantize_block_int8(codes, scale, g.shape)
     return out_g, out_r
+
+
+def _ef_whole(g, r):
+    """`quantize_ef` of a DTensor gradient and residual on the whole
+    tensor: (dequantized gradient, new residual), both placed as `g`."""
+    from torch.distributed.tensor import DTensor, Replicate
+    codes, scale, res = quantize_ef(g.full_tensor(), r.full_tensor())
+    deq = dequantize_block_int8(codes, scale, g.shape)
+    whole_pl = [Replicate()] * g.device_mesh.ndim
+
+    def back(t):
+        # Replicate -> Shard keeps a local block: no communication
+        return DTensor.from_local(t, g.device_mesh, whole_pl,
+                                  run_check=False).redistribute(
+            g.device_mesh, g.placements)
+
+    return back(deq), back(res)
 
 
 def init_residuals(params):

@@ -118,12 +118,51 @@ def rank_ag_matmul(rank, world, x, w):
                            src_data_rank=None)
     y = ag_matmul(xd, wd, mesh)
     return {"placements": [str(p) for p in y.placements],
-            "local_shape": tuple(y.to_local().shape), "y": _host(y)}
+            "local_shape": tuple(y.to_local().shape), "y": _host(y),
+            "heads": _heads_local_cases(mesh)}
 
 
-def rank_losses(rank, world, cases, tokens):
+def _heads_local_cases(mesh):
+    """`heads_local(blockwise_attention)` on the (world,) "model" mesh, its
+    result and the gradients of q, k, v (of the output against a fixed
+    random weight) gathered whole, beside the plain attention's, for (Hkv,
+    G) that the mesh divides by KV heads, by query heads and neither (6
+    heads over 4 ranks: 2, 2, 2, 0)."""
+    import torch
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.distributed.sharding import heads_local
+    from repro_torch.models.attention import blockwise_attention
+    out = {}
+    for hkv, g in ((4, 2), (1, 4), (2, 3)):
+        gen = torch.Generator().manual_seed(hkv * 10 + g)
+        q = torch.randn(2, 16, hkv, g, 8, generator=gen)
+        k = torch.randn(2, 16, hkv, 8, generator=gen)
+        v = torch.randn(2, 16, hkv, 8, generator=gen)
+        w = torch.randn(2, 16, hkv, g, 8, generator=gen)
+        d = [distribute_tensor(t, mesh, [Replicate()], src_data_rank=None)
+             .requires_grad_() for t in (q, k, v)]
+        got = heads_local(blockwise_attention, *d, causal=True, q_block=8,
+                          kv_block=8)
+        (got * distribute_tensor(w, mesh, [Replicate()],
+                                 src_data_rank=None)).sum().backward()
+        plain = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = blockwise_attention(*plain, causal=True, q_block=8,
+                                   kv_block=8)
+        (want * w).sum().backward()
+        out[(hkv, g)] = ([_host(got)] + [_host(t.grad) for t in d],
+                         [want.detach().numpy()]
+                         + [t.grad.numpy() for t in plain],
+                         tuple(got.to_local().shape))
+    return out
+
+
+def rank_losses(rank, world, cases, tokens, grad_modes=()):
     """[(arch, mode, ref_params)] -> per case (unsharded loss, loss with
-    the parameters and the batch placed by `mode` over a (2, 2) mesh)."""
+    the parameters and the batch placed by `mode` over a (2, 2) mesh); with
+    `grad_modes`, as its last item, the first case's model's gradients
+    under each of those modes against the unsharded ones: {mode: largest
+    error over the leaves, relative to the leaf's largest gradient}."""
     import torch
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -144,14 +183,51 @@ def rank_losses(rank, world, cases, tokens):
         with torch.no_grad(), implicit_replication():
             loss = model.loss_fn(_place_batch(batch, rules, "cpu"), rules)[0]
         out.append((plain, float(loss.full_tensor())))
+    if grad_modes:
+        out.append(_grad_errors(cases[0][0], cases[0][2], tokens, grad_modes))
     return out
 
 
-def rank_train_step(rank, world, ref_params, tokens):
-    """One step of llama3.2-3b reduced f32 in tp mode without a mesh and
-    over a (2, 2) mesh: (losses, largest parameter difference)."""
-    import torch
+def _grad_errors(arch, ref_params, tokens, modes):
+    """{mode: max over leaves of |g_mesh - g| / max |g|}: the gradients of
+    one step's loss with the state placed by `mode` over a (2, 2) mesh
+    against the unsharded ones."""
+    from repro_torch.distributed.sharding import NULL_RULES, ShardingRules
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import make_train_step, train_state
+    opt = OptConfig()
+    batch = {"tokens": tokens, "targets": tokens}
+    m1 = _f32_model(arch, ref_params)
+    train_state(m1, opt)
+    _, _, g1 = make_train_step(m1, NULL_RULES, opt).compute_grads(batch)
+    g1 = {n: _host(g) for n, g in g1.items()}
+    out = {}
+    for mode in modes:
+        rules = ShardingRules(_mesh((2, 2)), mode)
+        m2 = _f32_model(arch, ref_params)
+        train_state(m2, opt, rules=rules)
+        _, _, g2 = make_train_step(m2, rules, opt).compute_grads(batch)
+        out[mode] = max(float(abs(_host(g2[n]) - a).max())
+                        / max(float(abs(a).max()), 1e-30)
+                        for n, a in g1.items())
+    return out
 
+
+def rank_train_step(rank, world, ref_params, tokens, grad=None):
+    """One step of llama3.2-3b reduced f32 in tp mode without a mesh and
+    over a (2, 2) mesh, without and with int8 error-feedback gradients:
+    {"plain": ..., "compressed": ...}, each (losses, largest parameter
+    difference). With `grad`, also the error-feedback round trip of that
+    one gradient as a plain tensor and as a DTensor `Shard(1)` over a
+    (world,) "model" mesh ("ef")."""
+    out = {"plain": _train_step_case(ref_params, tokens, False),
+           "compressed": _train_step_case(ref_params, tokens, True)}
+    if grad is not None:
+        out["ef"] = _ef_round_trip(world, grad)
+    return out
+
+
+def _train_step_case(ref_params, tokens, compress_grads):
     from repro_torch.distributed.sharding import (NULL_RULES, ShardingRules,
                                                   is_dtensor)
     from repro_torch.train.optimizer import OptConfig
@@ -159,23 +235,61 @@ def rank_train_step(rank, world, ref_params, tokens):
     opt = OptConfig(lr=1e-2)
     batch = {"tokens": tokens, "targets": tokens}
     m1 = _f32_model("llama3.2-3b", ref_params)
-    s1 = train_state(m1, opt)
-    _, met1 = make_train_step(m1, NULL_RULES, opt)(s1, batch)
+    s1 = train_state(m1, opt, compress_grads)
+    s1, met1 = make_train_step(m1, NULL_RULES, opt,
+                               compress_grads=compress_grads)(s1, batch)
     rules = ShardingRules(_mesh((2, 2)))
     m2 = _f32_model("llama3.2-3b", ref_params)
-    s2 = train_state(m2, opt, rules=rules)
-    _, met2 = make_train_step(m2, rules, opt)(s2, batch)
+    s2 = train_state(m2, opt, compress_grads, rules=rules)
+    s2, met2 = make_train_step(m2, rules, opt,
+                               compress_grads=compress_grads)(s2, batch)
     p2 = dict(m2.named_parameters())
     diff = max(float(abs(_host(p) - _host(p2[n])).max())
                for n, p in m1.named_parameters())
     sharded = sorted(n for n, p in p2.items()
                      if is_dtensor(p) and any(pl.is_shard()
                                               for pl in p.placements))
-    return {"loss": (float(met1["loss"]), float(met2["loss"])),
-            "grad_norm": (float(met1["grad_norm"]),
-                          float(met2["grad_norm"])),
-            "param_diff": diff, "sharded": sharded,
-            "metrics_plain": not any(is_dtensor(v) for v in met2.values())}
+    out = {"loss": (float(met1["loss"]), float(met2["loss"])),
+           "grad_norm": (float(met1["grad_norm"]),
+                         float(met2["grad_norm"])),
+           "param_diff": diff, "sharded": sharded,
+           "metrics_plain": not any(is_dtensor(v) for v in met2.values())}
+    if compress_grads:
+        r1, r2 = s1["ef_residual"], s2["ef_residual"]
+        # a residual lies within half a code step of zero; an element
+        # whose gradient rounds to the neighbouring code moves by one step
+        steps = []
+        for n in r1:
+            a, b = _host(r1[n]), _host(r2[n])
+            steps.append(float(abs(a - b).max())
+                         / max(2.0 * float(abs(a).max()), 1e-30))
+        out["residual_steps"] = max(steps)
+        out["residual_sharded"] = is_dtensor(r2["emb.tok"]) and any(
+            pl.is_shard() for pl in r2["emb.tok"].placements)
+    return out
+
+
+def _ef_round_trip(world, grad):
+    """compress_grads_ef of `grad` (numpy) with a zero residual, plain and
+    as a DTensor `Shard(1)` over a (world,) "model" mesh: each result
+    gathered whole, and the sharded results' placements."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.train.compression import compress_grads_ef
+    g = torch.from_numpy(grad)
+    r = torch.from_numpy(np.random.RandomState(1).randn(*grad.shape)
+                         .astype(np.float32) * 1e-3)
+    plain_g, plain_r = compress_grads_ef({"w": g}, {"w": r})
+    mesh = _mesh((world,), ("model",))
+    gd = distribute_tensor(g, mesh, [Shard(1)], src_data_rank=None)
+    rd = distribute_tensor(r, mesh, [Shard(1)], src_data_rank=None)
+    sh_g, sh_r = compress_grads_ef({"w": gd}, {"w": rd})
+    return {"plain": (_host(plain_g["w"]), _host(plain_r["w"])),
+            "sharded": (_host(sh_g["w"]), _host(sh_r["w"])),
+            "placements": [str(p) for p in sh_g["w"].placements]
+            + [str(p) for p in sh_r["w"].placements]}
 
 
 def rank_pipeline(rank, world, seed):
@@ -233,7 +347,18 @@ def rank_elastic_restart(rank, world, arch, ref_params, tokens, ckpt_dir):
     params = dict(model.named_parameters())
     ckpt.save(ckpt_dir, 2, (params, state), meta={"step": 2})
     at_save = _host_tree((params, state))
-    straight = [float(step(state, b)[1]["loss"]) for b in batches[2:]]
+    straight, small, rounded = [], {}, []
+    for b in batches[2:]:
+        loss, metrics, grads = step.compute_grads(b)
+        for n, g in grads.items():
+            # elements whose gradient is near zero in either step: Adam's
+            # update there is a sign decision, which reduction order moves
+            g = np.abs(_host(g))
+            s = g < 1e-4 * g.max()
+            small[n] = s | small[n] if n in small else s
+        state, _ = step.update(state, metrics, grads)
+        rounded.append(_lossy_state(state, opt))
+        straight.append(float(loss))
     plan = plan_mesh(world, model_parallel=1)
     rules2 = ShardingRules(mesh_from_plan(plan))
     model2 = _f32_model(arch, ref_params)
@@ -252,17 +377,41 @@ def rank_elastic_restart(rank, world, arch, ref_params, tokens, ckpt_dir):
                        for a, b in zip(at_save, restored))
     step2 = make_train_step(model2, rules2, opt)
     resumed = []
-    for b in batches[2:]:
+    exempt = {n: s.copy() for n, s in small.items()}
+    n_rounded = 0
+    for b, was in zip(batches[2:], rounded):
         state2, met = step2(state2, b)
         resumed.append(float(met["loss"]))
-    diff = max(float(abs(_host(p) - _host(params2[n])).max())
-               for n, p in params.items())
+        # elements whose 8-bit m code or bf16 v rounded to a neighbour of
+        # the straight run's value: a rounding decision, as the sign is
+        for n, (m1, v1) in was.items():
+            m2, v2 = _lossy_state(state2, opt)[n]
+            moved = (m1 != m2) | (v1 != v2)
+            n_rounded += int((moved & ~exempt[n]).sum())
+            exempt[n] |= moved
+    diff, diff_exempt, n_small = 0.0, 0.0, 0
+    for n, p in params.items():
+        d = abs(_host(p) - _host(params2[n]))
+        diff = max(diff, float(d[~exempt[n]].max(initial=0.0)))
+        diff_exempt = max(diff_exempt, float(d[exempt[n]].max(initial=0.0)))
+        n_small += int(small[n].sum())
     return {"plan": (plan.shape, plan.axes), "meta": meta,
             "straight": straight, "resumed": resumed,
             "restore_diff": restore_diff, "leaves": len(restored),
-            "param_diff": diff,
+            "param_diff": diff, "param_diff_exempt": diff_exempt,
+            "small_grad_elements": n_small,
+            "rounded_state_elements": n_rounded,
             "meshes": sorted({tuple(p.device_mesh.shape)
                               for p in params2.values()})}
+
+
+def _lossy_state(state, opt):
+    """{name: (m codes, bf16 v)} as numpy of an 8-bit optimizer state
+    (`quantize_state`); {} for an f32 state, which rounds nothing."""
+    if not opt.quantize_state:
+        return {}
+    return {n: (_host(m["codes"]), _host(state["v"][n]))
+            for n, m in state["m"].items()}
 
 
 def _host_tree(tree):
