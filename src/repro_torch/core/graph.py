@@ -15,7 +15,9 @@ at construction time, before any audio runs.
     with removed chunks masked (`fused`), and its `fingerprint`. Each entry
     point takes the sharding `rules` (`NULL_RULES` by default); under rules
     with a mesh it runs the rank's rows and returns DTensors (section
-    "mesh" below).
+    "mesh" below). Each stage's enqueue is an `obs.tracing` span,
+    `stage.<name>`, and the gathering of a phase's outputs one more,
+    `outputs`.
 
 State fields carried between stages:
   wave            (B, S) mono, or (B, C, S) stereo before `to_mono`
@@ -41,6 +43,7 @@ from repro_torch.core import stages as S
 from repro_torch.distributed.sharding import NULL_RULES, whole
 from repro_torch.kernels.fused_tail import ops as fused_tail_ops
 from repro_torch.kernels.fused_tail.ref import gather_rows
+from repro_torch.obs import tracing as obs_tracing
 
 
 class GraphValidationError(ValueError):
@@ -431,33 +434,36 @@ class PipelineGraph:
 
     def _run(self, stages, state, rules):
         for st in stages:
-            state = st.apply(state, rules)
+            with obs_tracing.span("stage." + st.name):
+                state = st.apply(state, rules)
         return state
 
     def _outputs(self, state, rules, masked=False) -> PipelineOutput:
-        wave = state["wave"]
-        n = wave.shape[0]
-        zeros = torch.zeros((n,), dtype=torch.bool, device=wave.device)
-        rain = state.get("rain", zeros)
-        silence = state.get("silence", zeros)
-        keep = state.get("keep", ~rain & ~silence)
-        cicada = state.get("cicada", zeros)
-        if masked:
-            wave = torch.where(keep[:, None], wave,
-                               torch.zeros((), dtype=wave.dtype,
-                                           device=wave.device))
-        wave, keep, rain, silence, cicada = (
-            _global_rows(t, rules) for t in (wave, keep, rain, silence,
-                                             cicada))
-        stats = {
-            "n_chunks5": wave.shape[0],
-            "frac_rain": whole(rain.float().mean()),
-            "frac_silence": whole(silence.float().mean()),
-            "frac_kept": whole(keep.float().mean()),
-            "frac_cicada15": whole(cicada.float().mean()),
-        }
-        return PipelineOutput(wave5=wave, keep=keep, rain=rain,
-                              silence=silence, cicada15=cicada, stats=stats)
+        with obs_tracing.span("outputs"):
+            wave = state["wave"]
+            n = wave.shape[0]
+            zeros = torch.zeros((n,), dtype=torch.bool, device=wave.device)
+            rain = state.get("rain", zeros)
+            silence = state.get("silence", zeros)
+            keep = state.get("keep", ~rain & ~silence)
+            cicada = state.get("cicada", zeros)
+            if masked:
+                wave = torch.where(keep[:, None], wave,
+                                   torch.zeros((), dtype=wave.dtype,
+                                               device=wave.device))
+            wave, keep, rain, silence, cicada = (
+                _global_rows(t, rules) for t in (wave, keep, rain, silence,
+                                                 cicada))
+            stats = {
+                "n_chunks5": wave.shape[0],
+                "frac_rain": whole(rain.float().mean()),
+                "frac_silence": whole(silence.float().mean()),
+                "frac_kept": whole(keep.float().mean()),
+                "frac_cicada15": whole(cicada.float().mean()),
+            }
+            return PipelineOutput(wave5=wave, keep=keep, rain=rain,
+                                  silence=silence, cicada15=cicada,
+                                  stats=stats)
 
     def detection(self, audio, rules=NULL_RULES) -> PipelineOutput:
         """Phase A: everything up to and including the first removal point

@@ -56,13 +56,36 @@ each batch it emits into the process's metrics registry (`_record_batch`:
 `plan_batches_total`, `plan_chunks_total`, `plan_survivors_total`,
 `plan_src_bytes_total`, `plan_{d2h,h2d}_bytes_total`, all labelled
 `{plan=...}`, and the `plan_stage_seconds{plan,stage}` histogram of the
-numbers `BatchResult.timings` carries), and opens spans on the run's
-tracer: `fused_batch`, `detect_dispatch` (the async window fill), `tail`
-(mask readback, compaction, tail enqueue), `emit` (the cleaned readback),
-`tail_rebalanced`; the sharded plan's process master marks `accept` and
-`emit_gated` instants. The hooks read only what the host already holds
-(`.numel()`, never a copy), so they add no synchronisation of the card;
-with the registry disabled each costs one attribute check. `ShardedPlan`
+numbers `BatchResult.timings` carries), and opens spans (`obs.tracing.span`:
+on the run's tracer, and in `torch.profiler` as `obs/<name>` while it
+records):
+
+  * `fused_batch` -- one fused batch; `two_phase_batch` -- one synchronous
+    two_phase batch (`TwoPhasePlan.__call__`), the root of those below;
+  * `detect_dispatch` -- the upload, the detection enqueue and the start of
+    the keep readback, in every plan that dispatches (`_dispatch`);
+  * `upload` -- a batch's copy to the device (`_to_device`: two_phase's
+    pageable `torch.as_tensor`, the host blocked for the whole copy; or
+    `transfer.Staging.upload`: the pinned `copy_` and the DMA's enqueue);
+  * `stage.<name>` and `outputs` -- each stage's enqueue and the
+    detection's outputs (`core.graph.PipelineGraph`);
+  * `tail` -- parent of `keep_wait` (the host's wait for the keep mask),
+    `compact` (the survivor indices) and `tail_dispatch` (the index upload,
+    the tail's enqueue and the start of the cleaned readback; absent when
+    nothing survives);
+  * `emit` -- the cleaned readback's wait; `tail_rebalanced`;
+
+and the sharded plan's process master marks `accept` and `emit_gated`
+instants. `keep_wait`, `compact`, `tail_dispatch` and `emit` are
+`obs.tracing.timed` spans: their own clocks give `timings`' `readback_s`,
+`compact_s`, `tail_s` and `emit_s`. A two_phase batch opens about 19
+spans, 38 `Tracer` events where it made 4 before them, so a `Tracer` at
+its default `max_events` of 200,000 fills after some 5,000 batches and
+drops the rest of the run's events, perhaps a span's `E` after its `B`
+was kept. The hooks read only what the host already holds (`.numel()`,
+never a copy), so they add no synchronisation of the card; with the
+registry disabled each costs one attribute check, and a span with neither
+a tracer nor a profiler one check of the profiler's state. `ShardedPlan`
 takes `telemetry=` (a `TelemetryWriter`), which its `QueueService` writes
 per chunk at acceptance.
 """
@@ -253,7 +276,9 @@ class ExecutionPlan:
         self.pad_multiple = _mesh_multiple(pad_multiple, [rules])
 
     def _to_device(self, audio):
-        return torch.as_tensor(audio, dtype=torch.float32, device=self.device)
+        with obs_tracing.span("upload"):
+            return torch.as_tensor(audio, dtype=torch.float32,
+                                   device=self.device)
 
     def detect(self, audio) -> PipelineOutput:
         return _whole_output(self.graph.detection(self._to_device(audio),
@@ -330,21 +355,22 @@ class TwoPhasePlan(ExecutionPlan):
         tensor) is used where it is; a host batch goes through the staging
         ring when the plan has one (`slot`: the plan's device buffer it was
         copied into, when the plan donates)."""
-        if self.staging is None or (torch.is_tensor(audio)
-                                    and audio.device.type != "cpu"):
-            x, slot = self._to_device(audio), None
-        else:
-            x, slot = self.staging.upload(audio)
-        det = _whole_output(self.graph.detection(x, self.rules))
-        if slot is not None:
-            if det.wave5.untyped_storage().data_ptr() == \
-                    x.untyped_storage().data_ptr():
-                # a graph whose wave5 is a view of its input: keep it out
-                # of the slot that a later batch writes
-                det = replace(det, wave5=det.wave5.clone())
-            self.staging.release(slot)
-        return _Detected(det, self._readback(det.keep), wid, extra,
-                         x.numel() * x.element_size(), {})
+        with obs_tracing.span("detect_dispatch", wid=wid):
+            if self.staging is None or (torch.is_tensor(audio)
+                                        and audio.device.type != "cpu"):
+                x, slot = self._to_device(audio), None
+            else:
+                x, slot = self.staging.upload(audio)
+            det = _whole_output(self.graph.detection(x, self.rules))
+            if slot is not None:
+                if det.wave5.untyped_storage().data_ptr() == \
+                        x.untyped_storage().data_ptr():
+                    # a graph whose wave5 is a view of its input: keep it
+                    # out of the slot that a later batch writes
+                    det = replace(det, wave5=det.wave5.clone())
+                self.staging.release(slot)
+            return _Detected(det, self._readback(det.keep), wid, extra,
+                             x.numel() * x.element_size(), {})
 
     def _start_tail(self, d: _Detected) -> _PendingTail:
         """Master bookkeeping, device-resident: the host reads back only
@@ -355,27 +381,27 @@ class TwoPhasePlan(ExecutionPlan):
             return self._start_tail_inner(d)
 
     def _start_tail_inner(self, d: _Detected) -> _PendingTail:
-        t0 = time.perf_counter()
-        keep = d.keep.wait()                          # the only readback
-        t1 = time.perf_counter()
-        idx, n_real = SCHED.survivor_indices(keep, self.pad_multiple,
-                                             self.bucket)
-        t2 = time.perf_counter()
-        cleaned, h2d = None, 0
+        with obs_tracing.timed("keep_wait") as wait:
+            keep = d.keep.wait()                      # the only readback
+        with obs_tracing.timed("compact") as compact:
+            idx, n_real = SCHED.survivor_indices(keep, self.pad_multiple,
+                                                 self.bucket)
+        cleaned, h2d, tail_s = None, 0, 0.0
         if n_real:
-            idx_t = torch.from_numpy(idx)
-            if self.device.type == "cuda":      # no wait on the stream
-                idx_t = idx_t.pin_memory().to(self.device, non_blocking=True)
-            tail = (self.graph.tail_indexed_fused if self.fuse_tail
-                    else self.graph.tail_indexed)
-            cleaned = self._readback(
-                whole(tail(d.det.wave5, idx_t, self.rules))[:n_real])
-            h2d = idx.nbytes
-        t3 = time.perf_counter()
+            with obs_tracing.timed("tail_dispatch") as enq:
+                idx_t = torch.from_numpy(idx)
+                if self.device.type == "cuda":      # no wait on the stream
+                    idx_t = idx_t.pin_memory().to(self.device,
+                                                  non_blocking=True)
+                tail = (self.graph.tail_indexed_fused if self.fuse_tail
+                        else self.graph.tail_indexed)
+                cleaned = self._readback(
+                    whole(tail(d.det.wave5, idx_t, self.rules))[:n_real])
+            h2d, tail_s = idx.nbytes, enq.s
         wave5 = d.det.wave5
         timings = dict(d.timings)
         timings.update(
-            readback_s=t1 - t0, compact_s=t2 - t1, tail_s=t3 - t2,
+            readback_s=wait.s, compact_s=compact.s, tail_s=tail_s,
             h2d_bytes=h2d, d2h_bytes=keep.nbytes,
             tail_rows=0 if idx is None else len(idx), n_real=n_real,
             wave5_bytes=wave5.numel() * wave5.element_size())
@@ -386,15 +412,14 @@ class TwoPhasePlan(ExecutionPlan):
         """Wait for (the rest of) the cleaned readback and build the
         result. Only the real rows come back; pad rows are zero rows of
         the device tail and never reach `cleaned`."""
-        t0 = time.perf_counter()
-        with obs_tracing.span("emit", wid=pend.wid):
+        with obs_tracing.timed("emit", wid=pend.wid) as emit:
             if pend.cleaned is None:
                 cleaned = np.zeros((0, pend.det.wave5.shape[-1]),
                                    np.float32)
             else:
                 cleaned = pend.cleaned.wait()
                 pend.timings["d2h_bytes"] += cleaned.nbytes
-        pend.timings["emit_s"] = time.perf_counter() - t0
+        pend.timings["emit_s"] = emit.s
         # what the reference's host-side compaction round trip would have
         # moved for this batch: the full wave5 and mask down, the
         # linear-padded survivor batch up and the same padded rows down
@@ -417,7 +442,8 @@ class TwoPhasePlan(ExecutionPlan):
             det, self._readback(det.keep), None, None, src_bytes, {})))
 
     def __call__(self, audio) -> BatchResult:
-        return self._emit(self._start_tail(self._dispatch(audio)))
+        with obs_tracing.span("two_phase_batch"):
+            return self._emit(self._start_tail(self._dispatch(audio)))
 
 
 class AsyncPlan(TwoPhasePlan):
@@ -467,8 +493,7 @@ class AsyncPlan(TwoPhasePlan):
         for wid, chunks, extra in _iter_batches(batches):
             t0 = time.perf_counter()
             in_flight = len(dets) + 1
-            with obs_tracing.span("detect_dispatch", wid=wid):
-                d = self._dispatch(chunks, wid, extra)
+            d = self._dispatch(chunks, wid, extra)
             d.timings.update(dispatch_s=time.perf_counter() - t0,
                              in_flight=in_flight)
             dets.append(d)

@@ -32,6 +32,9 @@ on the card:
     holds their pinned memory, and a readback that then finds no free
     buffer in the cache pays a `cudaHostAlloc` (milliseconds for the
     megabytes of a batch's survivors).
+  * Timing. An upload is an `obs.tracing` span, `upload` (the pinned
+    `copy_` and the DMA's enqueue, host time); `Staging.log` keeps each
+    upload's `copy_` seconds and its DMA's events for `upload_times`.
 
 On the CPU, and for the synchronous `two_phase` plan, there is no staging:
 a batch enters with `torch.as_tensor` and a `Readback` without an event
@@ -43,6 +46,8 @@ import collections
 import time
 
 import torch
+
+from repro_torch.obs import tracing as obs_tracing
 
 LOG_CAP = 4096          # uploads kept in `Staging.log`
 
@@ -105,38 +110,39 @@ class Staging:
         device on the copy stream; the current (compute) stream waits for
         the copy. Returns (f32 device tensor, its slot in the device ring
         or None when the plan does not donate)."""
-        src = torch.as_tensor(batch)
-        n = src.numel()
-        if not self.pinned or self.pinned[0].numel() < n:
-            self._allocate(n)
-        slot = self._k % self.slots
-        self._k += 1
-        if self._copied[slot] is not None:
-            self._copied[slot].synchronize()
-        t0 = time.perf_counter()
-        host = self.pinned[slot][:n].view(src.shape)
-        host.copy_(src)
-        stage_s = time.perf_counter() - t0
-        compute = torch.cuda.current_stream(self.device)
-        if self.donate:
-            x = self.dev[slot][:n].view(src.shape)
-            if self._released[slot] is not None:
-                self.h2d.wait_event(self._released[slot])
-        else:
+        with obs_tracing.span("upload"):
+            src = torch.as_tensor(batch)
+            n = src.numel()
+            if not self.pinned or self.pinned[0].numel() < n:
+                self._allocate(n)
+            slot = self._k % self.slots
+            self._k += 1
+            if self._copied[slot] is not None:
+                self._copied[slot].synchronize()
+            t0 = time.perf_counter()
+            host = self.pinned[slot][:n].view(src.shape)
+            host.copy_(src)
+            stage_s = time.perf_counter() - t0
+            compute = torch.cuda.current_stream(self.device)
+            if self.donate:
+                x = self.dev[slot][:n].view(src.shape)
+                if self._released[slot] is not None:
+                    self.h2d.wait_event(self._released[slot])
+            else:
+                with torch.cuda.stream(self.h2d):
+                    x = torch.empty(src.shape, dtype=torch.float32,
+                                    device=self.device)
+                x.record_stream(compute)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
             with torch.cuda.stream(self.h2d):
-                x = torch.empty(src.shape, dtype=torch.float32,
-                                device=self.device)
-            x.record_stream(compute)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        with torch.cuda.stream(self.h2d):
-            start.record()
-            x.copy_(host, non_blocking=True)
-            end.record()
-        compute.wait_event(end)
-        self._copied[slot] = end
-        self.log.append((stage_s, start, end))
-        return x, (slot if self.donate else None)
+                start.record()
+                x.copy_(host, non_blocking=True)
+                end.record()
+            compute.wait_event(end)
+            self._copied[slot] = end
+            self.log.append((stage_s, start, end))
+            return x, (slot if self.donate else None)
 
     def release(self, slot):
         """The work enqueued so far on the compute stream is the last to

@@ -28,11 +28,28 @@ A span measures host time: on the card it covers the enqueue of the
 work, not its execution, as the reference's spans cover JAX's
 asynchronous dispatch. No span synchronises the device.
 
+Two sinks, two clocks. The run's `Tracer` stamps its events with
+`time.time_ns()` (epoch microseconds in the Chrome JSON), the clock the
+master and its workers share. While `torch.profiler` records, the
+module-level `span()` also opens a record named `obs/<name>` in the
+profiler (`torch._C._profiler._RecordFunctionFast`, a function-scope
+record: kineto keeps it among the host operations and does not mirror it
+onto the device timeline as it does `record_function`'s user
+annotations). That record is stamped by the profiler's own clock, the
+one its kernels and copies carry, so each idle gap of the device can be
+put down to the program span around it. The record carries the name
+only; nesting is the profiler's, by interval.
+
 `validate_chrome_trace` is the schema gate: every event carries
 `ph`/`ts`/`pid`/`tid`/`name`, and `B`/`E` balance LIFO per (pid, tid).
 
-Zero cost when off: the module-level tracer defaults to `NULL_TRACER`,
-whose `span()` returns a shared no-op context manager.
+Near zero cost when off: the module-level tracer defaults to
+`NULL_TRACER`, and with no profiler recording `span()` returns the shared
+no-op context manager after one check of the profiler's state.
+
+`timed(name)` is a span that also keeps its own host seconds (`.s`, by
+`time.perf_counter`, on or off): the one clock of an interval whose length
+the caller also needs, such as a plan's `timings`.
 """
 from __future__ import annotations
 
@@ -42,11 +59,16 @@ import threading
 import time
 import uuid
 
+import torch
+
+# whether torch.profiler is recording (one call into C)
+_profiling = torch._C._autograd._profiler_enabled
+
 
 def _now_us():
     # Wall-clock (not monotonic) so master and worker events share a
     # comparable timebase across processes.
-    return time.time() * 1e6
+    return time.time_ns() / 1e3
 
 
 class _NullSpan:
@@ -76,6 +98,26 @@ class _Span:
 
     def __exit__(self, *exc):
         self._tracer._emit("E", self._name)
+        return False
+
+
+class _ProfiledSpan:
+    """A span while a profiler records: an `obs/<name>` record in the
+    profiler around the tracer's span (None: no tracer installed)."""
+    __slots__ = ("_record", "_span")
+
+    def __init__(self, name, span):
+        self._record = torch._C._profiler._RecordFunctionFast("obs/" + name)
+        self._span = span
+
+    def __enter__(self):
+        self._record.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._record.__exit__(*exc)
+        if self._span is not None:
+            self._span.__exit__(*exc)
         return False
 
 
@@ -246,8 +288,36 @@ def set_tracer(tracer):
 
 
 def span(name, **args):
+    """A span on the run's tracer and, while a profiler records, in the
+    profiler as `obs/<name>`."""
     t = _TRACER
-    return t.span(name, **args) if t.enabled else _NULL_SPAN
+    if not _profiling():
+        return t.span(name, **args) if t.enabled else _NULL_SPAN
+    return _ProfiledSpan(name, t.span(name, **args) if t.enabled else None)
+
+
+class _Timed:
+    """A span (`span()`'s, null when off) and its host seconds, `s`."""
+    __slots__ = ("_span", "_t0", "s")
+
+    def __init__(self, span):
+        self._span = span
+        self.s = 0.0
+
+    def __enter__(self):
+        self._span.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.s = time.perf_counter() - self._t0
+        return self._span.__exit__(*exc)
+
+
+def timed(name, **args):
+    """`span(name, **args)` that also times itself: `with timed("x") as
+    t: ...`, then `t.s` is the interval's host seconds."""
+    return _Timed(span(name, **args))
 
 
 def instant(name, **args):

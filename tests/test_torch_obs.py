@@ -14,13 +14,16 @@ warm, leaves the same `plan_*`, `store_*` and `dist_*` metric names and
 counter values in both registries (the JAX package in backend mode "ref";
 stage timings excepted); a port `QueueService`'s `metrics` RPC has the
 reference's shape; a telemetry record built from a result holding tensors
-is byte for byte the reference's. Last, the hooks change nothing: plans
-run bitwise equal with metrics, tracing and telemetry on and off.
+is byte for byte the reference's. Under `torch.profiler` a two_phase
+batch's spans are host events `obs/<name>` on the profiler's clock, around
+the aten ops they enqueue. Last, the hooks change nothing: plans run
+bitwise equal with metrics, tracing, telemetry and the profiler on and off.
 
 Spawned workers get one intra-op thread each and every process run is
 bounded by the plan's `stall_timeout_s`.
 """
 import json
+import time
 
 import numpy as np
 import pytest
@@ -403,6 +406,25 @@ def test_redelivery_counter_fires_without_telemetry(fresh_registry):
 
 # ------------------------------------------------ the plans' own hooks
 
+# every span a two_phase batch opens when a chunk survives
+TWO_PHASE_SPANS = {"two_phase_batch", "detect_dispatch", "upload",
+                   "outputs", "tail", "keep_wait", "compact",
+                   "tail_dispatch", "emit"} | {
+    f"stage.{n}" for n in cfg.stages[:cfg.stages.index("removal_point") + 1]}
+
+
+def _profiled_two_phase(stream):
+    """Run two_phase over `stream` under a CPU `torch.profiler`: (results,
+    the profiler's events as (name, start ns, end ns))."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = list(Preprocessor(cfg, plan="two_phase", device="cpu")
+                   .run(stream))
+    evs = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+           for e in prof.profiler.kineto_results.events()]
+    return out, evs
+
+
 def test_plan_hooks_record_each_plan(fresh_registry, fresh_tracer):
     """Each single-process plan counts its batches, chunks, survivors and
     source bytes under its own label, and opens the reference's spans."""
@@ -429,20 +451,89 @@ def test_plan_hooks_record_each_plan(fresh_registry, fresh_tracer):
     assert ("async", "dispatch") in stages and ("two_phase", "emit") in stages
     fresh_tracer.finish_run()
     names = {e["name"] for e in fresh_tracer.chrome()["traceEvents"]}
-    assert {"fused_batch", "detect_dispatch", "tail", "emit"} <= names
+    assert {"fused_batch", "detect_dispatch", "tail", "emit"} | \
+        TWO_PHASE_SPANS <= names
+
+
+@pytest.mark.parametrize("with_tracer", [False, True])
+def test_two_phase_spans_on_the_profilers_clock(with_tracer):
+    """Under `torch.profiler` every span of a two_phase batch is a host
+    event `obs/<name>`, with or without the run's tracer; each batch's
+    spans lie inside its `obs/two_phase_batch`, and the aten ops of the
+    STFT stage inside `obs/stage.stft`: one clock. The tracer, when
+    installed, gets the same spans."""
+    tracer = Tracer() if with_tracer else None
+    obs_tracing.set_tracer(tracer)
+    try:
+        out, evs = _profiled_two_phase(_stream(2))
+    finally:
+        obs_tracing.set_tracer(None)
+    assert sum(r.n_kept for r in out) > 0
+    obs = [e for e in evs if e[0].startswith("obs/")]
+    assert {n[4:] for n, _, _ in obs} == TWO_PHASE_SPANS
+    batches = sorted(e for e in obs if e[0] == "obs/two_phase_batch")
+    assert len(batches) == 2
+    for _, s, e in obs:
+        assert len([b for b in batches if b[1] <= s and e <= b[2]]) == 1
+    stfts = [e for e in obs if e[0] == "obs/stage.stft"]
+    assert len(stfts) == 2
+    for _, s, e in stfts:
+        ops = [o for o in evs if o[0].startswith("aten::") and s <= o[1] <= e]
+        assert "aten::fft_rfft" in {o[0] for o in ops}
+        assert all(o[2] <= e for o in ops)
+    if with_tracer:
+        validate_chrome_trace(tracer.chrome())
+        names = {e["name"] for e in tracer.chrome()["traceEvents"]}
+        assert names == TWO_PHASE_SPANS
+
+
+def test_span_is_the_null_span_with_neither_tracer_nor_profiler():
+    obs_tracing.set_tracer(None)
+    assert obs_tracing.span("x") is obs_tracing._NULL_SPAN
+    assert obs_tracing.span("x", wid=3) is obs_tracing._NULL_SPAN
+
+
+@pytest.mark.parametrize("mode", ["off", "tracer", "profiler"])
+def test_timed_span_keeps_its_own_seconds(mode):
+    """`timed` times its interval whether or not anything records (the
+    plans' `timings` read it), and is a span where something does: the
+    tracer's B/E pair, or the profiler's `obs/<name>` around its clock."""
+    from torch.profiler import ProfilerActivity, profile
+    tracer = Tracer() if mode == "tracer" else None
+    obs_tracing.set_tracer(tracer)
+    try:
+        if mode == "profiler":
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                with obs_tracing.timed("x", wid=1) as t:
+                    time.sleep(0.01)
+            evs = [e for e in prof.profiler.kineto_results.events()
+                   if e.name() == "obs/x"]
+            assert len(evs) == 1 and evs[0].duration_ns() >= 1e7
+        else:
+            with obs_tracing.timed("x", wid=1) as t:
+                time.sleep(0.01)
+    finally:
+        obs_tracing.set_tracer(None)
+    assert 0.01 <= t.s < 5.0
+    if tracer is not None:
+        validate_chrome_trace(tracer.chrome())
+        assert [e["ph"] for e in tracer.chrome()["traceEvents"]] == ["B", "E"]
 
 
 @pytest.mark.parametrize("plan,kw", [("two_phase", {}),
                                      ("async", {"depth": 2}),
                                      ("sharded", {"shards": 2}),
-                                     ("cached", {})])
+                                     ("cached", {}),
+                                     ("two_phase", {"profile": True})])
 def test_outputs_bitwise_equal_with_observability_on(plan, kw, tmp_path):
     """The hooks only watch: metrics, tracing and telemetry on against
-    all off gives the same bytes out."""
+    all off gives the same bytes out; `profile`: the same with a
+    `torch.profiler` recording as well."""
     stream = _stream(2)
 
     def run(on):
         args = dict(kw)
+        profile = args.pop("profile", False) and on
         if plan == "cached":
             args["store"] = str(tmp_path / ("on" if on else "off"))
         prev = obs_metrics.get_registry()
@@ -452,8 +543,12 @@ def test_outputs_bitwise_equal_with_observability_on(plan, kw, tmp_path):
         try:
             with obs_telemetry.TelemetryWriter(tmp_path / f"t{on}") as w:
                 extra = {"telemetry": w} if on and plan == "sharded" else {}
-                out = list(Preprocessor(cfg, plan=plan, device="cpu", **args,
-                                        **extra).run(stream))
+                if profile:
+                    out, evs = _profiled_two_phase(stream)
+                    assert any(e[0] == "obs/two_phase_batch" for e in evs)
+                else:
+                    out = list(Preprocessor(cfg, plan=plan, device="cpu",
+                                            **args, **extra).run(stream))
                 for r in out:
                     if on:
                         obs_telemetry.record_result(w, r.wid, r)

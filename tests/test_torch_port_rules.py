@@ -26,6 +26,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "scripts" / "dft_variants.py",
     ROOT / "scripts" / "lm_profile.py",
     ROOT / "scripts" / "train_profile.py",
+    ROOT / "scripts" / "span_breakdown.py",
     ROOT / "scripts" / "init_loss_depth.py",
     ROOT / "scripts" / "multirank_check.py", ROOT / "tests" / "torch_ranks.py",
     ROOT / "examples" / "preprocess_and_train_torch.py"]
