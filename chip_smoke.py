@@ -42,13 +42,15 @@ outside a checkout of the repo. Phases, any failure exits non-zero:
      masks, cleaned audio within 2e-4); the staged cell the fused one
      within 2e-4; the async, streaming and both cached cells the fused
      two_phase cell bitwise, with at least one dispatch of the async cell
-     that overlapped another batch and no batch copied from pageable
-     memory in its profiled pass; the fused plan's masks the two_phase
+     that overlapped another batch; no batch copied from pageable memory
+     in the profiled pass of either two_phase cell or of the async cell;
+     the fused plan's masks the two_phase
      cell's exactly and its kept rows the staged cell's survivors within
      rtol 1e-4 / atol 1e-5 (reported: whether bitwise). Printed: MB/s of
      source audio (median, min and max of 5 timed passes per cell, the
      cells in turns), the chunks kept, the host staging and DMA ms of each
-     upload of the asynchronous cells, and one profiled pass per cell
+     upload of the cells with a staging ring (two_phase's and the
+     asynchronous ones), and one profiled pass per cell
      (device time by kernel, copies by kind; its trace goes to
      `build/chip_smoke/`). Then a kill and resume of the cached cell with
      a run journal (one result taken, the generator closed, the run
@@ -811,21 +813,22 @@ def main_path(torch, np, card):
             stats1 = pre.plan.stats.as_dict()
             store_run[label] = {k: stats1[k] - stats0[k]
                                 for k in ("hits", "misses", "writes")}
-        # the asynchronous plans hand out `cleaned` as views of pinned
+        # the plans with a staging ring hand out `cleaned` as views of pinned
         # buffers; keep copies, so that the timed passes find those
         # buffers free in the caching host allocator as a consumer that
         # drops its results leaves them (no cudaHostAlloc in a pass)
         results[label] = [dataclasses.replace(r, cleaned=r.cleaned.copy())
                           for r in run]
         del run
-        if staging is not None:
+        if hasattr(pre.plan, "last_timings"):
             in_flight[label] = [t["in_flight"]
                                 for t in pre.plan.last_timings]
+        if staging is not None:
             uploads[label] = [{"staging_ms": a, "dma_ms": b}
                               for a, b in staging.upload_times()]
     # timed passes, the cells in turns, the order reversed every other
     # pass so that no cell always runs first; and the host staging ms the
-    # asynchronous cells spent in each pass
+    # cells with a staging ring spent in each pass
     pass_times = {label: [] for label in cells}
     pass_staging = {label: [] for label in uploads}
     for rep in range(PASSES):
@@ -880,9 +883,10 @@ def main_path(torch, np, card):
                "src_mb": src / 2**20, "kept": kept, "chunks": chunks,
                "detect_ms": detect_ms, "tail_ms": tail_ms,
                "timings": [r.timings for r in res], "profile": profile}
+        if label in in_flight:
+            rec.update(depth=pre.plan.depth, in_flight=in_flight[label])
         if label in uploads:
-            rec.update(depth=pre.plan.depth, in_flight=in_flight[label],
-                       uploads=uploads[label],
+            rec.update(uploads=uploads[label],
                        pass_staging_ms=pass_staging[label])
         if label in store_run:
             # the content keys of one pass alone (sha256 of the source on
@@ -927,10 +931,11 @@ def main_path(torch, np, card):
         check(max(in_flight[label]) >= 2,
               f"{label}: no dispatch overlapped another batch "
               f"(in_flight {in_flight[label]})")
-    bad = pageable_uploads(runs["serf_async_fused"]["profile"]["copies"],
-                           batch_bytes)
-    check(not bad, f"serf_async_fused: the profiled pass copied a batch "
-                   f"from pageable memory ({bad})")
+    for label in ("serf_two_phase_fused", "serf_two_phase_staged",
+                  "serf_async_fused"):
+        bad = pageable_uploads(runs[label]["profile"]["copies"], batch_bytes)
+        check(not bad, f"{label}: the profiled pass copied a batch from "
+                       f"pageable memory ({bad})")
 
     base = runs["serf_two_phase_fused"]["res"]
     for label in ("serf_two_phase_staged", "serf_async_fused",

@@ -10,8 +10,9 @@ The reference's plans, all ported:
                        padded survivor-index vector -> the survivor tail on
                        the device, which gathers the survivors out of the
                        still-resident batch. MMSE cost scales with
-                       surviving audio. One batch at a time, with
-                       synchronous copies: the single-stream default.
+                       surviving audio. One batch at a time: the
+                       single-stream default. On the card its copies go
+                       through a one-slot `core.transfer.Staging` ring.
   * `AsyncPlan`     -- the deep pipeline: a window of `depth` detection
                        batches enqueued ahead, each keep mask read back
                        without blocking as soon as its detection is
@@ -56,7 +57,10 @@ each batch it emits into the process's metrics registry (`_record_batch`:
 `plan_batches_total`, `plan_chunks_total`, `plan_survivors_total`,
 `plan_src_bytes_total`, `plan_{d2h,h2d}_bytes_total`, all labelled
 `{plan=...}`, and the `plan_stage_seconds{plan,stage}` histogram of the
-numbers `BatchResult.timings` carries), and opens spans (`obs.tracing.span`:
+numbers `BatchResult.timings` carries), counts how each batch `_dispatch`
+takes reached the device (`plan_uploads_total{plan,path}`, the port's own:
+`pinned` through a staging ring, `resident` a device tensor used where it
+is, `direct` a `torch.as_tensor`), and opens spans (`obs.tracing.span`:
 on the run's tracer, and in `torch.profiler` as `obs/<name>` while it
 records):
 
@@ -64,9 +68,10 @@ records):
     two_phase batch (`TwoPhasePlan.__call__`), the root of those below;
   * `detect_dispatch` -- the upload, the detection enqueue and the start of
     the keep readback, in every plan that dispatches (`_dispatch`);
-  * `upload` -- a batch's copy to the device (`_to_device`: two_phase's
-    pageable `torch.as_tensor`, the host blocked for the whole copy; or
-    `transfer.Staging.upload`: the pinned `copy_` and the DMA's enqueue);
+  * `upload` -- a batch's copy to the device (`_to_device`: a pageable
+    `torch.as_tensor`, the host blocked for the whole copy, where no
+    staging ring takes the batch; or `transfer.Staging.upload`: the pinned
+    `copy_` and the DMA's enqueue);
   * `stage.<name>` and `outputs` -- each stage's enqueue and the
     detection's outputs (`core.graph.PipelineGraph`);
   * `tail` -- parent of `keep_wait` (the host's wait for the keep mask),
@@ -183,6 +188,15 @@ def _record_batch(plan_name, res: BatchResult):
         if k in t:
             reg.counter(f"plan_{k}_total", "host-boundary traffic",
                         ("plan",)).labels(**lab).inc(int(t[k]))
+
+
+def _count_upload(plan_name, path):
+    """Count one batch `_dispatch` brought to the device by `path`."""
+    reg = obs_metrics.get_registry()
+    if not reg.enabled:
+        return
+    reg.counter("plan_uploads_total", "batches brought to the device",
+                ("plan", "path")).labels(plan=plan_name, path=path).inc()
 
 
 def _iter_batches(batches):
@@ -313,11 +327,12 @@ class FusedPlan(ExecutionPlan):
 
 class TwoPhasePlan(ExecutionPlan):
     """`pad_multiple` and `bucket` set the survivor tail's row count
-    (`scheduler.quantize_survivors`). `donate` lets the asynchronous plans
-    write a later batch into the device input buffer of an earlier one once
-    its detection is enqueued (None: on for CUDA); two_phase copies each
-    batch synchronously into a fresh tensor, so there it only records the
-    choice, as the reference's signature has it."""
+    (`scheduler.quantize_survivors`). `donate` lets a plan write a later
+    batch into the device input buffer of an earlier one once its
+    detection is enqueued (None: on for CUDA); without it each batch gets a
+    fresh device tensor. It acts on the card only: there a host batch goes
+    through a `transfer.Staging` ring of one slot (the one batch in
+    flight), and the keep mask and the cleaned rows come back through it."""
     name = "two_phase"
 
     def __init__(self, graph: PipelineGraph, rules=NULL_RULES,
@@ -343,7 +358,8 @@ class TwoPhasePlan(ExecutionPlan):
                 f"{graph.names[graph._cut():]} are not the canonical "
                 f"[hpf ->] mmse fused tail")
         self.fuse_tail = bool(fuse_tail)
-        self.staging = None             # synchronous copies
+        self.staging = (transfer.Staging(self.device, 1, self.donate)
+                        if self.device.type == "cuda" else None)
 
     def _readback(self, t) -> transfer.Readback:
         return (transfer.Readback(t) if self.staging is None
@@ -354,13 +370,17 @@ class TwoPhasePlan(ExecutionPlan):
         keep-mask readback. A batch already on the device (the caller's
         tensor) is used where it is; a host batch goes through the staging
         ring when the plan has one (`slot`: the plan's device buffer it was
-        copied into, when the plan donates)."""
+        copied into, when the plan donates). `plan_uploads_total` counts
+        the path taken."""
         with obs_tracing.span("detect_dispatch", wid=wid):
-            if self.staging is None or (torch.is_tensor(audio)
-                                        and audio.device.type != "cpu"):
+            resident = (torch.is_tensor(audio) and audio.device.type != "cpu"
+                        and self.device.type != "cpu")
+            if resident or self.staging is None:
                 x, slot = self._to_device(audio), None
+                _count_upload(self.name, "resident" if resident else "direct")
             else:
                 x, slot = self.staging.upload(audio)
+                _count_upload(self.name, "pinned")
             det = _whole_output(self.graph.detection(x, self.rules))
             if slot is not None:
                 if det.wave5.untyped_storage().data_ptr() == \
@@ -692,6 +712,7 @@ class ShardedPlan(TwoPhasePlan):
         else:
             pool = (rules,) * shards
         super().__init__(graph, pool[0], pad_multiple, device=device)
+        self.staging = None     # the shards copy with `_to_device`, `.cpu()`
         for r in pool[1:]:
             _mesh_device(r, self.device.type)
         self.rules_pool = pool

@@ -1,4 +1,4 @@
-"""Host <-> device copies of the asynchronous plans.
+"""Host <-> device copies of the two_phase and asynchronous plans.
 
 There is no module of the reference to port here: JAX's runtime does this
 work for it. `jnp.asarray` of a numpy batch stages it to the device, and
@@ -14,7 +14,9 @@ on the card:
     its pinned slot with `Tensor.copy_` (PyTorch's intra-op threads).
   * Upload on a copy stream. The device copy is enqueued `non_blocking` on
     a stream of its own, and the compute stream waits on its end event
-    before detection: the upload of batch k+1 overlaps detection of k.
+    before detection: the upload of batch k+1 overlaps detection of k in
+    the asynchronous plans, and the host's enqueue of the batch's own
+    detection in two_phase (one slot: one batch in flight).
   * Slot reuse. A pinned slot is written again only after its last copy
     has ended (a host wait on that event, normally long past). A device
     slot is written again only after an event the compute stream recorded
@@ -36,8 +38,8 @@ on the card:
     `copy_` and the DMA's enqueue, host time); `Staging.log` keeps each
     upload's `copy_` seconds and its DMA's events for `upload_times`.
 
-On the CPU, and for the synchronous `two_phase` plan, there is no staging:
-a batch enters with `torch.as_tensor` and a `Readback` without an event
+On the CPU, and for the fused and sharded plans, there is no staging: a
+batch enters with `torch.as_tensor` and a `Readback` without an event
 copies with `.cpu()` when it is waited on.
 """
 from __future__ import annotations

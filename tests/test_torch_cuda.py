@@ -343,6 +343,62 @@ def test_cuda_tensor_batch_enters_without_a_copy(card, plan):
         assert len(pre.plan.staging.log) == staged      # no upload
 
 
+def test_two_phase_staging_ring_is_pinned(card):
+    """two_phase on the card: one pinned slot and no device ring (it does
+    not donate), one logged upload a host batch and none for a batch
+    already on the card, each path counted in `plan_uploads_total`."""
+    from repro_torch.obs import metrics as obs_metrics
+    stream = _stream(3)
+    prev = obs_metrics.get_registry()
+    reg = obs_metrics.MetricsRegistry()
+    obs_metrics.set_registry(reg)
+    try:
+        pre = Preprocessor(cfg, plan="two_phase")
+        list(pre.run(stream))
+        st = pre.plan.staging
+        assert (st.slots, st.donate, st.dev) == (1, False, [])
+        assert len(st.pinned) == 1 and st.pinned[0].is_pinned()
+        assert len(st.log) == 3
+        pre(torch.as_tensor(stream[0][1][0], device=card))
+        assert len(st.log) == 3
+    finally:
+        obs_metrics.set_registry(prev)
+    assert all(stage_ms >= 0.0 and dma_ms > 0.0
+               for stage_ms, dma_ms in st.upload_times())
+    counts = {s["labels"]["path"]: s["value"]
+              for s in reg.snapshot()["plan_uploads_total"]["series"]}
+    assert counts == {"pinned": 3, "resident": 1}
+
+
+def test_two_phase_results_held_bitwise_equal_resident_batches(card):
+    """Six host batches through the pinned ring, every result held until
+    the end, against the same batches entered as tensors on the card: a
+    pinned slot or a readback buffer written again too early would show
+    here."""
+    stream = _stream(6)
+    got = list(Preprocessor(cfg, plan="two_phase").run(stream))
+    resident = [(w, (torch.as_tensor(c, device=card), lab))
+                for w, (c, lab) in stream]
+    want = list(Preprocessor(cfg, plan="two_phase").run(resident))
+    _assert_same(got, want)
+    assert sum(r.n_kept for r in got) > 0
+
+
+def test_two_phase_caller_may_overwrite_its_batch(card):
+    """The pinned `copy_` has ended when the call returns: a caller that
+    zeroes its numpy batch at once leaves the result as it was."""
+    stream = _stream(3)
+    pre = Preprocessor(cfg, plan="two_phase")
+    want = [pre(torch.as_tensor(c, device=card)) for _, (c, _) in stream]
+    got = []
+    for _, (chunks, _) in stream:
+        batch = chunks.copy()
+        got.append(pre(batch))
+        batch[...] = 0.0
+    _assert_same(got, want)
+    assert sum(r.n_kept for r in got) > 0
+
+
 def test_fused_plan_on_card_matches_staged_two_phase(card):
     """The no-early-exit plan: all its rows through the STFT and MMSE
     kernels; masks equal to two_phase's, kept rows within the reference's

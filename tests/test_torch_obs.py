@@ -3,8 +3,8 @@ the reference's `tests/test_obs.py` against the port's metrics registry,
 tracer, Chrome-trace schema gate and durable telemetry, the sharded
 plan's exactly-once telemetry (in process and over real worker processes,
 whose spans arrive parented under the master's run span), SIGKILL
-redelivery attribution, the ring caps, the StoreStats mirror and the
-`metrics` RPC.
+redelivery attribution, the ring caps, the StoreStats mirror, the
+`metrics` RPC and the plans' count of their upload paths on the CPU.
 
 Then the same inputs through both frameworks: the reference's
 `validate_chrome_trace` takes the port's trace and its `read_records` /
@@ -453,6 +453,37 @@ def test_plan_hooks_record_each_plan(fresh_registry, fresh_tracer):
     names = {e["name"] for e in fresh_tracer.chrome()["traceEvents"]}
     assert {"fused_batch", "detect_dispatch", "tail", "emit"} | \
         TWO_PHASE_SPANS <= names
+
+
+def _upload_counts():
+    """(plan, path) -> value of `plan_uploads_total` in the registry."""
+    series = obs_metrics.snapshot().get("plan_uploads_total",
+                                        {"series": []})["series"]
+    return {(s["labels"]["plan"], s["labels"]["path"]): s["value"]
+            for s in series}
+
+
+@pytest.mark.parametrize("plan", ["two_phase", "async"])
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_cpu_plans_count_direct_uploads(fresh_registry, plan, as_tensor):
+    """On the CPU no plan has a staging ring: every batch `_dispatch`
+    takes, a numpy array or a CPU tensor, counts once as `direct`."""
+    stream = _stream(3)
+    if as_tensor:
+        stream = [(w, (torch.from_numpy(c), lab)) for w, (c, lab) in stream]
+    pre = Preprocessor(cfg, plan=plan, device="cpu")
+    assert pre.plan.staging is None
+    assert len(list(pre.run(stream))) == 3
+    assert _upload_counts() == {(plan, "direct"): 3}
+
+
+def test_sharded_plan_keeps_its_pageable_copies(fresh_registry):
+    """The sharded plan inherits two_phase's constructor but takes no
+    staging ring, and its in-process shards never pass `_dispatch`."""
+    pre = Preprocessor(cfg, plan="sharded", shards=2, device="cpu")
+    assert pre.plan.staging is None
+    assert len(list(pre.run(_stream(2)))) == 2
+    assert _upload_counts() == {}
 
 
 @pytest.mark.parametrize("with_tracer", [False, True])
