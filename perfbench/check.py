@@ -1,7 +1,9 @@
 """The comparison that decides `correct`: what the timed path produced
 against the plain reference on the same inputs.
 
-Numbers compared, each with a limit from the configuration file:
+`judge` holds any runner's numbers to a configuration's limits. The rest
+is the SERF pipeline's tally, which `runners/archive.py` hands the
+harness. Its numbers, each with a limit from the configuration file:
 
   mask_mismatch    chunks whose keep / rain / silence (5 s) or cicada
                    (15 s, where the path returns it) differ from the
@@ -114,9 +116,13 @@ class Tally:
 
 
 def judge(numbers, limits):
-    """(correct, {name: {"value", "limit"}}): every number at or under its
-    limit."""
-    table = {k: {"value": numbers[k], "limit": limits[k]} for k in NUMBERS}
+    """(correct, {name: {"value", "limit"}}): every number a tally gave
+    (`numbers`, in its order) at or under its limit. Limits that lack a
+    number the tally gives, or hold one it does not give, are refused."""
+    if set(numbers) != set(limits):
+        raise KeyError(f"the limits {sorted(limits)} do not name the "
+                       f"numbers compared {list(numbers)}")
+    table = {k: {"value": v, "limit": limits[k]} for k, v in numbers.items()}
     return all(v["value"] <= v["limit"] for v in table.values()), table
 
 

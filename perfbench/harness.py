@@ -11,8 +11,7 @@ import os
 import sys
 import time
 
-from perfbench import check, traffic as T
-from perfbench.reference import serf as reference
+from perfbench import check
 from perfbench.spec import ROOT, Bench
 
 # what no module of the process that prints a result may hold once the
@@ -63,26 +62,22 @@ def run_cell(workload, seed, seconds, trace, t_start, device="cuda",
     config = bench.config(cell["config"])
     traffic = bench.traffic(cell["traffic"])
     for part, changes in (overrides or {}).items():
-        {"config": config, "traffic": traffic,
-         "deployment": config["deployment"]}[part].update(changes)
-    pipeline = config["pipeline"]
+        (traffic if part == "traffic" else config if part == "config"
+         else config[part]).update(changes)
+    mod = bench.runner(config["runner"])
 
     phases = {"imports": time.monotonic() - t_start}
-    items = T.make_items(traffic, seed, device)
-    if device == "cuda":
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+    items = mod.make_items(traffic, seed, device)
     phases["inputs"] = time.monotonic() - t_start
     drv = runner
     try:
         if drv is None:
-            drv = bench.runner(config["runner"]).Runner(config, device,
-                                                        torch)
+            drv = mod.Runner(config, device, torch)
         phases["program"] = time.monotonic() - t_start
         drv.warm(items, traffic, seed)
         setup_s = time.monotonic() - t_start
         record = drv.window(items, traffic, seed, seconds, trace=bool(trace))
-        peak = drv.memory_peak()
+        cards = drv.devices()
     finally:
         if runner is None and drv is not None:
             drv.close()
@@ -90,21 +85,17 @@ def run_cell(workload, seed, seconds, trace, t_start, device="cuda",
 
     # the check: the reference on the compared items, once the program is
     # gone
-    tally = check.Tally()
+    tally = mod.Tally()
     refs = {}
     for k, arr in record["compared"]:
         if k not in refs:
-            refs[k] = reference.run(items[k], pipeline, "f32",
-                                    device=device)
+            refs[k] = mod.reference(items[k], config, mod.PRECISION, device)
         tally.add(arr, refs[k])
     numbers = tally.numbers(record["repeat_mismatch"])
     correct, table = check.judge(numbers, config["limits"])
     record.pop("compared")
 
-    info = {"platform": "gpu" if device == "cuda" else "cpu",
-            "kind": (torch.cuda.get_device_name(0) if device == "cuda"
-                     else "cpu"),
-            "count": 1, "memory_peak_bytes": int(peak)}
+    info = device_block(cards, device, trace)
     from perfbench.trace import smi_query
     power = smi_query("power.limit")
     run = Run(record, bench, workload, config, traffic)
@@ -115,9 +106,6 @@ def run_cell(workload, seed, seconds, trace, t_start, device="cuda",
         value = bench.reader(m["name"]).read(run)
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
-    if trace and record.get("trace") is not None:
-        info["busy_s"] = record["trace"].busy_s()
-        info["window_s"] = record["trace"].window_s
     result = {"correct": bool(correct), "attempted": record["attempted"],
               "failed": record["failed"], "metrics": metrics,
               "device": info}
@@ -129,9 +117,47 @@ def run_cell(workload, seed, seconds, trace, t_start, device="cuda",
         "power_limit_w": power, "coverage": tally.coverage(),
         "setup_phases_end_s": phases,
         "window_s": record["window_s"],
-        "warm_batch_s": record.get("warm_batch_s")}
+        "warm_batch_s": record.get("warm_batch_s"),
+        "cards": cards}
     result["check"] = table
     return result
+
+
+def device_block(cards, device, trace):
+    """The result's `device` from the runner's records of the cards that
+    did work in the window: their number, their common name, the fullest
+    card's peak and, traced, the mean card's busy seconds and window,
+    written only where every card was traced."""
+    names = sorted({c["name"] for c in cards})
+    info = {"platform": "gpu" if device == "cuda" else "cpu",
+            "kind": " / ".join(names), "count": len(cards),
+            "memory_peak_bytes": max((int(c["memory_peak_bytes"])
+                                      for c in cards), default=0)}
+    if trace and cards and all("busy_s" in c for c in cards):
+        info["busy_s"] = sum(c["busy_s"] for c in cards) / len(cards)
+        info["window_s"] = sum(c["window_s"] for c in cards) / len(cards)
+    return info
+
+
+def device_faults(cards, chips, trace):
+    """Why a run on cards may not print a result, from the runner's
+    records: another number of cards than the cell asks for, cards of
+    different names, or a card that reports no work (no memory allocated,
+    or, traced, no device time)."""
+    faults = []
+    if len(cards) != chips:
+        faults.append(f"{len(cards)} card(s) did work, the cell asks for "
+                      f"{chips}")
+    names = sorted({c["name"] for c in cards})
+    if len(names) > 1:
+        faults.append(f"cards of different kinds: {names}")
+    for c in cards:
+        if c["memory_peak_bytes"] <= 0:
+            faults.append(f"card {c['index']} allocated no memory")
+        if trace and not c.get("busy_s", 0) > 0:
+            faults.append(f"card {c['index']} shows no device time in the "
+                          f"traced window")
+    return faults
 
 
 def print_result(result):

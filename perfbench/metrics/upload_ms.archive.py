@@ -1,7 +1,7 @@
 """upload_ms.archive: host time of the program's `obs/upload` spans a
 traced batch, ms: the host's side of the copy that `h2d_ms.archive` sees
-on the device (two_phase's pageable `torch.as_tensor`, which blocks the
-host for the whole copy)."""
+on the device (two_phase's `transfer.Staging`: the host's copy into the
+pinned slot and the enqueue of its DMA on the copy stream)."""
 
 
 def read(run):

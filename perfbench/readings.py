@@ -2,10 +2,11 @@
 
   program   the cell's own run (`harness.run_cell`, a short window) on each
             seed: the numbers its check compares
-  control   the reference in TF32 (the step below the configuration's
-            float32) put in the program's place, on the items a run
-            compares (every pool item), judged against the
-            reference in float32
+  control   the reference at the control's precision (the runner's
+            `CONTROL`; the archive's: TF32, the step below the
+            configuration's float32) put in the program's place, on every
+            pool item, judged against the reference at the runner's
+            `PRECISION`
 
     python3 perfbench/readings.py --workload serf_archive.chorus \
         --seeds 101,102,103 --control-seeds 101,102,103 --seconds 3
@@ -26,16 +27,17 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def control_numbers(bench, workload, seed, device):
-    from perfbench import check, traffic as T
-    from perfbench.reference import serf as reference
+    """The control's numbers and coverage on one seed, through the cell's
+    runner module (its inputs, reference and tally)."""
     cell = bench.cell(workload)
     config = bench.config(cell["config"])
     traffic = bench.traffic(cell["traffic"])
-    items = T.make_items(traffic, seed, device)
-    tally = check.Tally()
+    mod = bench.runner(config["runner"])
+    items = mod.make_items(traffic, seed, device)
+    tally = mod.Tally()
     for item in items:
-        want = reference.run(item, config["pipeline"], "f32", device=device)
-        got = reference.run(item, config["pipeline"], "tf32", device=device)
+        want = mod.reference(item, config, mod.PRECISION, device)
+        got = mod.reference(item, config, mod.CONTROL, device)
         tally.add(got, want)
     return tally.numbers(), tally.coverage()
 
@@ -48,7 +50,7 @@ def main(argv=None):
     ap.add_argument("--seconds", type=float, default=3.0)
     args = ap.parse_args(argv)
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
-    from perfbench import check, harness
+    from perfbench import harness
     harness.cache_env(str(ROOT))
     import torch
     if not torch.cuda.is_available():
@@ -59,7 +61,8 @@ def main(argv=None):
     prog, ctrl = [], []
     # one program for every seed: set-up is most of a run
     config = bench.config(bench.cell(args.workload)["config"])
-    drv = bench.runner(config["runner"]).Runner(config, "cuda", torch)
+    mod = bench.runner(config["runner"])
+    drv = mod.Runner(config, "cuda", torch)
     try:
         for s in seeds:
             r = harness.run_cell(args.workload, s, args.seconds, 0,
@@ -74,10 +77,10 @@ def main(argv=None):
     for s in [int(s) for s in args.control_seeds.split(",") if s]:
         nums, cov = control_numbers(bench, args.workload, s, "cuda")
         ctrl.append(nums)
-        print(json.dumps({"control_tf32": s, "numbers": nums,
+        print(json.dumps({f"control_{mod.CONTROL}": s, "numbers": nums,
                           "coverage": cov}), flush=True)
     summary = {}
-    for k in check.NUMBERS:
+    for k in mod.NUMBERS:
         summary[k] = {
             "program_max": max((p[k] for p in prog), default=None),
             "control_min": min((c[k] for c in ctrl), default=None)}

@@ -8,7 +8,10 @@ The cell, its configuration, its traffic and its metrics are named in
 Prints the result as one JSON object on the last line of standard output
 and the numbers `correct` was decided by, each beside its limit, as the
 last lines of standard error. Exits 2, printing no result, without a CUDA
-card, and 3 when a module of JAX or of the JAX package was loaded.
+card, 3 when a module of JAX or of the JAX package was loaded, and 4 when
+the cards the run used (the runner's `devices()`) are not the cell's:
+another number than its "chips", cards of different names, or a card that
+reports no work.
 """
 import time
 
@@ -47,6 +50,12 @@ def main(argv=None):
         print(f"perfbench: modules loaded that the run may not hold: "
               f"{bad}", file=sys.stderr)
         return 3
+    faults = harness.device_faults(result["diagnostics"]["cards"], need,
+                                   args.trace)
+    if faults:
+        print(f"perfbench: the cards the run used: {'; '.join(faults)}",
+              file=sys.stderr)
+        return 4
     harness.print_result(result)
     return 0
 

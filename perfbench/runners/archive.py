@@ -6,6 +6,9 @@ it (its construction copied: `make_local_mesh`, `ShardingRules(mesh)`,
 configuration's "deployment". The window cycles through the traffic's
 pool of batches; the job takes its next batch as soon as the plan yields
 the last one.
+
+The cell's inputs, reference and check are the SERF pipeline's:
+`traffic.make_items`, `reference.serf.run` and `check.Tally`.
 """
 from __future__ import annotations
 
@@ -14,12 +17,23 @@ import time
 import numpy as np
 
 from perfbench import check
+from perfbench.check import NUMBERS, Tally  # noqa: F401
+from perfbench.reference import serf
 from perfbench.trace import Profiler
+from perfbench.traffic import make_items  # noqa: F401
+
+PRECISION = "f32"       # the reference's: float32 with TF32 off
+CONTROL = "tf32"        # the control's: the step below it
 
 TRACE_S = 6.0           # seconds at the window's end that a traced run
 #                         profiles
 SAMPLE_LATER = 8        # later occurrences compared, besides each item's
 #                         first
+
+
+def reference(item, config, precision, device):
+    """The plain reference on one item at `precision`."""
+    return serf.run(item, config["pipeline"], precision, device=device)
 
 
 class Runner:
@@ -33,8 +47,13 @@ class Runner:
         from repro_torch.distributed.sharding import ShardingRules
         from repro_torch.launch.mesh import make_local_mesh
 
+        if device == "cuda":
+            # the peak counts from the program's set-up on, not the inputs'
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
         self.torch = torch
         self.dist = dist
+        self.trace = None
         self.pipeline = config["pipeline"]
         dep = config["deployment"]
         cfg = AudioPipelineConfig(**{
@@ -49,6 +68,7 @@ class Runner:
                                 pad_multiple=pad, device=dev,
                                 **dep.get("plan_kwargs", {}))
         self.cuda = self.pre.device.type == "cuda"
+        self.index = torch.cuda.current_device() if self.cuda else 0
 
     def _sync(self):
         if self.cuda:
@@ -75,9 +95,12 @@ class Runner:
 
     def window(self, items, traffic, seed, seconds, trace=False):
         """Run the closed loop for `seconds`; returns the run's record.
-        Traced, the profiler records the last `TRACE_S` seconds."""
+        Traced, the profiler records the last `TRACE_S` seconds, host and
+        card; untraced, it records the card alone over the whole window
+        ("card_trace")."""
         from repro_torch import kernels
         profiler = Profiler(self.torch) if trace else None
+        card = None if trace else Profiler(self.torch, host=False)
         rng = np.random.default_rng([int(seed) % 2**63, 2])
         n = len(items)
         t_trace = None if profiler is None else \
@@ -102,6 +125,8 @@ class Runner:
         batches, samples, first_kept = [], {}, {}
         reservoir, seen_later = [], 0
         repeat_mismatch = 0
+        if card is not None:
+            card.start()
         self._sync()
         t0 = time.perf_counter()
         for res in self.pre.run(stream()):
@@ -132,25 +157,39 @@ class Runner:
                         res.det, res.cleaned))
         self._sync()
         t1 = time.perf_counter()
+        if card is not None:
+            card.stop()
         if profiler is not None and state["traced_from"] is not None:
             profiler.stop()
             state["traced_to"] = len(batches)
+        self.trace = profiler.trace() if state["traced_to"] else None
         after = kernels.launches()
         compared = [(k, arr) for k, arr in samples.values()] + \
             [(k, arr) for _, k, arr in reservoir]
         return {"kind": self.kind, "window_s": t1 - t0,
                 "warm_batch_s": self.warm_s,
-                "trace": profiler.trace() if state["traced_to"] else None,
+                "trace": self.trace,
+                "card_trace": None if card is None else card.trace(),
                 "batches": batches, "compared": compared,
                 "repeat_mismatch": repeat_mismatch,
                 "launches": {k: after[k] - launches0.get(k, after[k])
                              for k in after} if launches0 else {},
                 "attempted": len(batches), "failed": 0}
 
-    def memory_peak(self):
-        if not self.cuda:
-            return 0
-        return int(self.torch.cuda.max_memory_allocated())
+    def devices(self):
+        """The one card the program ran on (the CPU in a rehearsal): its
+        name, its peak of allocated memory from set-up on, and, where the
+        last window was traced, its busy seconds in the traced part."""
+        torch = self.torch
+        card = {"index": self.index, "name": "cpu", "memory_peak_bytes": 0}
+        if self.cuda:
+            card.update(name=torch.cuda.get_device_name(self.index),
+                        memory_peak_bytes=int(
+                            torch.cuda.max_memory_allocated(self.index)))
+        if self.trace is not None:
+            card.update(busy_s=self.trace.busy_s(),
+                        window_s=self.trace.window_s)
+        return [card]
 
     def close(self):
         cuda = self.cuda

@@ -10,6 +10,39 @@
 A cell reports the end-to-end metrics that list it under "workloads" (or
 that list none), and the per-layer metrics that list it (or that list
 none and move an end-to-end metric the cell reports).
+
+A runner module holds all that is particular to a kind of configuration;
+the harness (`harness.run_cell`, `readings.py`) calls only these:
+
+  make_items(traffic, seed, device)   the cell's inputs from the seed: a
+                                      list the window draws from
+  reference(item, config, precision, device)
+                                      the plain reference's answer on one
+                                      item, at `PRECISION` (what the
+                                      configuration states) or `CONTROL`
+                                      (the step below, for the control)
+  Tally()                             `add(program, reference)` one
+                                      compared answer, `numbers(
+                                      repeat_mismatch)` the dict of
+                                      numbers compared, `coverage()` what
+                                      they covered
+  NUMBERS                             the names `numbers` gives; the
+                                      configuration's "limits" name these
+                                      and no others (`check.judge`)
+  Runner(config, device, torch)       the program: `warm(items, traffic,
+                                      seed)`, `window(items, traffic, seed,
+                                      seconds, trace)` -> the record the
+                                      readers read ("kind", "window_s",
+                                      "trace", "compared" as [(item index,
+                                      program answer)], "repeat_mismatch",
+                                      "attempted", "failed"), `devices()`,
+                                      `close()`
+
+`devices()` gives one record a card that did work in the window, gathered
+from whatever processes ran there: {"index", "name", "memory_peak_bytes"},
+and "busy_s" and "window_s" where that card was traced. The result's
+`device` is built from them (`harness.device_block`), and `run.py` prints
+no result where they are not the cell's (`harness.device_faults`).
 """
 from __future__ import annotations
 

@@ -88,28 +88,32 @@ class Trace:
 
 class Profiler:
     """`torch.profiler` over a part of a window: `start()`, `stop()`, then
-    `trace()`. With no card it records the host only."""
+    `trace()`. With no card it records the host only; with `host=False`
+    the card alone (with no card, nothing)."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, host=True):
         from torch.profiler import ProfilerActivity, profile
-        acts = [ProfilerActivity.CPU]
+        acts = [ProfilerActivity.CPU] if host else []
         if torch.cuda.is_available():
             acts.append(ProfilerActivity.CUDA)
         self.torch = torch
-        self.prof = profile(activities=acts)
+        self.host = host
+        self.prof = profile(activities=acts) if acts else None
         self.t0 = self.t1 = None
 
     def start(self):
         if self.torch.cuda.is_available():
             self.torch.cuda.synchronize()
-        self.prof.start()
+        if self.prof is not None:
+            self.prof.start()
         self.t0 = time.perf_counter()
 
     def stop(self):
         if self.torch.cuda.is_available():
             self.torch.cuda.synchronize()
         self.t1 = time.perf_counter()
-        self.prof.stop()
+        if self.prof is not None:
+            self.prof.stop()
 
     def trace(self):
         """The events as a `Trace`: device operations (kernels, copies,
@@ -117,6 +121,8 @@ class Profiler:
         window's length on the host's clock."""
         from torch.autograd import DeviceType
         tr = Trace(window_s=self.t1 - self.t0)
+        if self.prof is None:
+            return tr
         first = None
         for e in self.prof.profiler.kineto_results.events():
             s = e.start_ns() / 1e9
@@ -126,6 +132,15 @@ class Profiler:
             else:
                 tr.host.append(iv)
                 first = s if first is None else min(first, s)
+        if not self.host:
+            # the card alone: every device operation recorded belongs to
+            # the part profiled (start() and stop() wait for the card), so
+            # the part spans them all
+            if tr.device:
+                tr.start = min(iv.start for iv in tr.device)
+                tr.window_s = max(iv.end for iv in tr.device) - tr.start
+            tr.host = []
+            return tr
         # the profiler's clock starts its first host event at about the
         # moment start() returned
         tr.start = first if first is not None else 0.0
