@@ -100,6 +100,7 @@ import collections
 import math
 import operator
 import os
+import subprocess
 import threading
 import time
 from dataclasses import dataclass, field, replace
@@ -113,7 +114,7 @@ from repro_torch.core.graph import (GraphValidationError, PipelineGraph,
                                     PipelineOutput)
 from repro_torch.data.loader import ShardedLoader, make_shard_pool
 from repro_torch.data.queue import WorkQueue
-from repro_torch.device import resolve_device, worker_env
+from repro_torch.device import resolve_device, visible_cards, worker_env
 from repro_torch.distributed.sharding import NULL_RULES, is_dtensor, whole
 from repro_torch.dist.data_plane import StoreDataPlane
 from repro_torch.dist.service import QueueService, pack_result, unpack_result
@@ -581,7 +582,13 @@ class FleetControl:
     service's worker ledger): spawn a late joiner, drain a worker out
     gracefully, SIGKILL one or SIGSTOP-stall one. The chaos harness
     (`ft.chaos`) drives it. A late joiner goes through the same
-    `spawn_worker` + `hello` as the original fleet."""
+    `spawn_worker` + `hello` as the original fleet.
+
+    A caller that measures the run marks a part of it to every live
+    worker (`mark`: each records its card, and its spans where the master
+    traces, from its next item on) and at the end drains the whole fleet
+    (`drain_all`), so that every worker's `bye`, which carries what it
+    recorded, lands before the caller closes the run."""
 
     def __init__(self, plan, service, transport, handles):
         self.plan = plan
@@ -619,6 +626,33 @@ class FleetControl:
         """Ask one worker to leave gracefully (finish held leases, take no
         more, exit through bye)."""
         return self.service.drain(self.handles[int(shard)].worker)
+
+    def drain_all(self, timeout=300.0):
+        """Drain every live worker and wait up to `timeout` seconds for
+        their processes to exit (each signs off through `bye` first).
+        True once none is left running."""
+        for k in self.live():
+            self.drain(k)
+        deadline = time.monotonic() + float(timeout)
+        for h in list(self.handles.values()):
+            try:
+                h.proc.wait(max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+        return not self.live()
+
+    def mark(self, on, spans=False):
+        """Name the start (`on`) or the end of a measured part to every
+        live worker, each at its next item: it records its card's device
+        operations and, with `spans`, its spans under this process's
+        tracer (`obs.tracing`), which must then run."""
+        trace = None
+        if on and spans:
+            trace = obs_tracing.get_tracer().propagate()
+            if trace is None:
+                raise RuntimeError("mark(spans=True) needs a tracer "
+                                   "running on the master")
+        return self.service.mark(on, trace=trace)
 
     def kill(self, shard):
         """SIGKILL one worker: it dies holding whatever it holds."""
@@ -1006,12 +1040,15 @@ class ShardedPlan(TwoPhasePlan):
     # -- proc master: real worker processes over the transport --------------
     def _proc_setup(self):
         """The picklable blob workers build their plan from: the port's
-        config, stage names, pad/bucket, the device type to run on and the
-        backend mode."""
+        config, stage names, pad/bucket, the device type to run on, this
+        process's cards (the numbering a worker reports its card in) and
+        the backend mode."""
         return {"cfg": self.graph.cfg, "stages": list(self.graph.names),
                 "source_channels": self.graph.source_geom.channels,
                 "pad_multiple": self.pad_multiple, "bucket": self.bucket,
                 "device": self.device.type,
+                "cards": visible_cards() if self.device.type == "cuda"
+                else [],
                 "backend_mode": backend.get_mode()}
 
     def _run_proc(self, pool, queue):

@@ -35,6 +35,15 @@ def to_host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
+def visible_cards() -> list:
+    """This process's cards as `CUDA_VISIBLE_DEVICES` names them, in its
+    own order (their indices where it is unset): position i is card i of
+    this process."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    return (visible.split(",") if visible else
+            [str(i) for i in range(torch.cuda.device_count())])
+
+
 def worker_env(device: torch.device, shard: int) -> dict:
     """Environment additions for worker process `shard` of a master on
     `device`: with more than one card visible, the one card it is pinned
@@ -42,7 +51,24 @@ def worker_env(device: torch.device, shard: int) -> dict:
     worker shares the card, each its own CUDA context)."""
     if device.type != "cuda" or torch.cuda.device_count() < 2:
         return {}
-    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
-    ids = (visible.split(",") if visible else
-           [str(i) for i in range(torch.cuda.device_count())])
+    ids = visible_cards()
     return {"CUDA_VISIBLE_DEVICES": ids[shard % len(ids)]}
+
+
+def card_record(device: torch.device, master_cards=()) -> dict:
+    """The card this process runs on, as the master that spawned it sees
+    it: {"index", "name", "memory_peak_bytes"}. `index` is the card's
+    position in `master_cards` (the master's `visible_cards()`), found by
+    the id this process sees it under, or this process's own index where
+    the master's list does not name it (a worker that shares the master's
+    cards); the peak is `max_memory_allocated` since the last reset. On
+    the CPU: index None, name "cpu", peak 0."""
+    if device.type != "cuda":
+        return {"index": None, "name": "cpu", "memory_peak_bytes": 0}
+    here = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    own = visible_cards()[here]
+    cards = [str(c) for c in master_cards]
+    return {"index": cards.index(own) if own in cards else here,
+            "name": torch.cuda.get_device_name(here),
+            "memory_peak_bytes": int(torch.cuda.max_memory_allocated(here))}

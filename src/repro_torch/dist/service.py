@@ -28,6 +28,14 @@ worker ships back into the master's tracer. `bye` keeps the rest of the
 worker's stats dict as received (`WorkerStats.report`: its idle/busy
 split, its kernel launches and the bytes its allocator held).
 
+The measured part: the master names the start and end of a part of the
+run (`mark`, master-side) and each worker learns of it in the reply to its
+next `heartbeat`, which it sends before every item: with nothing marked the
+reply is True, as before, so a worker that knows no marks ignores it. A
+worker told a part records its card and, where the mark carries the
+master's tracer context, its spans, and reports them in `bye`
+(`dist.worker`).
+
 Everything that crosses the wire is numpy and plain Python: `fetch`
 returns a host f32 batch and `pack_result` a numpy-only payload, so no
 tensor, on the card or off it, is ever pickled onto the socket.
@@ -60,6 +68,10 @@ RPC_METHODS = frozenset({
     "push_result", "heartbeat", "fail_worker", "state", "progress",
     "finished", "next_deadline", "bye", "metrics", "drain", "draining",
 })
+# the methods that ship chunk batches over the master's socket: a
+# transport serves each under the program span "serve_fetch", the send
+# included where it has one
+SERVED_FETCHES = frozenset({"fetch", "fetch_many"})
 
 # Worker membership states (WorkerStats.state). Every transition bumps the
 # service's membership epoch and is mirrored into the metrics registry.
@@ -159,6 +171,9 @@ class QueueService:
         # retirement, whichever loop caused them
         queue.on_redeliver = self._on_redeliver
         queue.on_complete = self._on_complete
+        # the measured part the master names (`mark`): the reply to every
+        # heartbeat once set
+        self._mark = None
         # master-side hook, called inside lease() once per granted work id
         # with (worker, wid): the CrashInjector's process-mode trigger (a
         # doomed worker is SIGKILLed while its fresh lease is registered
@@ -514,12 +529,27 @@ class QueueService:
         return True
 
     def heartbeat(self, worker):
+        """Extend `worker`'s leases. Answers with the measured part the
+        master last named (`mark`), or True where none was."""
         with self.queue.lock:
             self.queue.heartbeat_extend(worker)
             self._w(worker).last_beat = self.queue.clock()
+            mark = self._mark
         if self.monitor is not None:
             self.monitor.beat(worker)
-        return True
+        return True if mark is None else mark
+
+    def mark(self, on, trace=None):
+        """Master-side (not served): name the start (`on`) or the end of a
+        measured part to every worker, each at its next heartbeat. In the
+        part a worker records its card's device operations and, given the
+        master's tracer context (`trace`, `Tracer.propagate()`), its spans;
+        `bye` carries them. Returns the mark's number."""
+        with self.queue.lock:
+            seq = 1 if self._mark is None else self._mark["seq"] + 1
+            self._mark = {"seq": seq, "on": bool(on),
+                          "trace": trace if on else None}
+        return seq
 
     def fail_worker(self, worker):
         """Reclaim a dead worker's leases and record the death (state dead,

@@ -33,7 +33,9 @@ The authkey never rides the command line: workers get it from the
 wrong key fails the handshake inside `Listener.accept()`, so no handler
 thread is spawned for an unauthenticated peer). Every message is numpy and
 plain Python (`QueueService` sees to it): no tensor is pickled onto the
-socket.
+socket. A fetch of chunk batches (`SERVED_FETCHES`) is served under the
+program span "serve_fetch": the batches' materialisation on the master and,
+over a socket, their pickling and send.
 """
 from __future__ import annotations
 
@@ -46,8 +48,9 @@ import threading
 from multiprocessing.connection import Client, Listener
 from pathlib import Path
 
-from repro_torch.dist.service import RPC_METHODS
+from repro_torch.dist.service import RPC_METHODS, SERVED_FETCHES
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
 
 AUTHKEY_ENV = "REPRO_DIST_AUTHKEY"
 
@@ -75,6 +78,15 @@ class InProcTransport:
         self._service = None
 
 
+def _n_fetched(method, args, kwargs):
+    """The batches one served fetch asks for: `fetch(wid)` one,
+    `fetch_many(worker, wids)` its ids."""
+    if method != "fetch_many":
+        return 1
+    wids = kwargs.get("wids", args[1] if len(args) > 1 else ())
+    return len(wids)
+
+
 class _LocalProxy:
     """The in-proc twin of _RpcProxy: same .call surface, no wire."""
 
@@ -85,6 +97,10 @@ class _LocalProxy:
         if method not in RPC_METHODS:
             raise RemoteError(f"method {method!r} is not served")
         attr = getattr(self._service, method)
+        if method in SERVED_FETCHES:
+            with obs_tracing.span("serve_fetch", method=method,
+                                  n=_n_fetched(method, args, kwargs)):
+                return attr(*args, **kwargs)
         return attr(*args, **kwargs) if callable(attr) else attr
 
     def close(self):
@@ -241,33 +257,48 @@ class ProcTransport:
                     method, args, kwargs = conn.recv()
                 except (EOFError, OSError):
                     return
-                if method not in RPC_METHODS:
-                    msg = (False, f"method {method!r} is not served")
+                if method in SERVED_FETCHES:
+                    with obs_tracing.span("serve_fetch", method=method,
+                                          n=_n_fetched(method, args,
+                                                       kwargs)):
+                        sent = self._reply(conn, service, method, args,
+                                           kwargs)
                 else:
-                    obs_metrics.counter(
-                        "dist_rpc_calls_total",
-                        "proc-transport RPCs served, by method",
-                        ("method",)).labels(method=method).inc()
-                    try:
-                        attr = getattr(service, method)
-                        val = attr(*args, **kwargs) if callable(attr) \
-                            else attr
-                        msg = (True, val)
-                    except Exception as e:          # ship, don't crash
-                        obs_metrics.counter(
-                            "dist_rpc_errors_total",
-                            "RPCs that raised on the master",
-                            ("method",)).labels(method=method).inc()
-                        msg = (False, f"{type(e).__name__}: {e}")
-                try:
-                    conn.send(msg)
-                except (OSError, ValueError):
+                    sent = self._reply(conn, service, method, args, kwargs)
+                if not sent:
                     return
         finally:
             try:
                 conn.close()
             except OSError:
                 pass
+
+    @staticmethod
+    def _reply(conn, service, method, args, kwargs):
+        """Dispatch one call against the RPC surface and send (ok, value);
+        False once the connection is gone."""
+        if method not in RPC_METHODS:
+            msg = (False, f"method {method!r} is not served")
+        else:
+            obs_metrics.counter(
+                "dist_rpc_calls_total",
+                "proc-transport RPCs served, by method",
+                ("method",)).labels(method=method).inc()
+            try:
+                attr = getattr(service, method)
+                val = attr(*args, **kwargs) if callable(attr) else attr
+                msg = (True, val)
+            except Exception as e:          # ship, don't crash
+                obs_metrics.counter(
+                    "dist_rpc_errors_total",
+                    "RPCs that raised on the master",
+                    ("method",)).labels(method=method).inc()
+                msg = (False, f"{type(e).__name__}: {e}")
+        try:
+            conn.send(msg)
+        except (OSError, ValueError):
+            return False
+        return True
 
     def spawn_worker(self, shard=None, lease_items=1, poll_s=None,
                      env_extra=None) -> WorkerHandle:

@@ -31,9 +31,21 @@ A SIGKILL anywhere in that loop leaves leases registered and not
 completed: recovery is the queue's lease expiry or the master's
 `fail_worker`. At the end `bye` reports the idle/busy split, the chunks
 done, the kernel launches this worker made (`kernels.launches()`), which
-the master's own counters cannot see, and the bytes its allocator holds on
-the card. `run_worker` is importable, so that
+the master's own counters cannot see, the bytes its allocator holds on
+the card, and its card (`device.card_record`: the card's index in the
+master's numbering, its name and its peak of allocated memory from the
+plan's set-up on). `run_worker` is importable, so that
 tests drive the loop in-process over an `InProcTransport`.
+
+The measured part: the reply to the heartbeat before each item may name
+the start or the end of a part of the run (`QueueService.mark`). Inside
+it the worker records its card's device operations
+(`obs.tracing.CardRecorder`) and the work ids it computed, and, where the
+mark carries the master's tracer context and no tracer runs here, its
+spans as below; `bye` carries the part under "part" ({"window_s", "busy",
+"ops", "batches"}: `CardRecorder.result()` and [[wid, source bytes]]) and
+the spans under "spans". A part still open when the loop ends closes
+there.
 
 Tracing: when the master runs a tracer, `hello` carries its trace id and
 run-span parent. The worker records `lease`, `fetch_many` or
@@ -53,6 +65,59 @@ import time
 import numpy as np
 
 
+class _Part:
+    """The measured part the master names, as this worker follows it."""
+
+    def __init__(self, device):
+        self.device = device
+        self.seq = 0            # the last mark acted on
+        self.on = False
+        self.recorder = None
+        self.tracer = None      # the part's own tracer while it records
+        self.batches = []
+        self.report = None      # the last part's, once it ended
+        self.spans = []
+
+    def follow(self, reply):
+        """Act on a heartbeat's reply: True, or a mark not yet seen."""
+        if not isinstance(reply, dict) or reply["seq"] == self.seq:
+            return
+        self.seq = reply["seq"]
+        self.end()
+        if reply["on"]:
+            self._begin(reply)
+
+    def _begin(self, mark):
+        from repro_torch.obs import tracing as obs_tracing
+        self.on = True
+        self.batches = []
+        if mark.get("trace") and not obs_tracing.get_tracer().enabled:
+            self.tracer = obs_tracing.Tracer(**mark["trace"])
+            obs_tracing.set_tracer(self.tracer)
+        self.recorder = obs_tracing.CardRecorder(self.device)
+        self.recorder.start()
+
+    def note(self, wid, src_bytes):
+        """One item computed: counted where a part is open."""
+        if self.on:
+            self.batches.append([int(wid), int(src_bytes)])
+
+    def end(self):
+        if not self.on:
+            return
+        from repro_torch.obs import tracing as obs_tracing
+        self.on = False
+        self.recorder.stop()
+        rep = self.recorder.result()
+        self.recorder = None
+        rep["batches"] = self.batches
+        self.report = rep
+        if self.tracer is not None:
+            obs_tracing.set_tracer(None)
+            self.spans.extend(self.tracer.drain())
+            self.tracer = None
+
+
 def run_worker(master, shard=None, lease_items=1, poll_s=0.05,
                transport=None, max_items=None):
     """Run one worker against a served QueueService and return the stats
@@ -68,6 +133,7 @@ def run_worker(master, shard=None, lease_items=1, poll_s=0.05,
     from repro_torch.core.graph import PipelineGraph
     from repro_torch.kernels import backend
     from repro_torch.core.plans import TwoPhasePlan
+    from repro_torch.device import card_record
     from repro_torch.dist.service import pack_result
     from repro_torch.dist.transport import ProcTransport
     from repro_torch.obs import tracing as obs_tracing
@@ -91,6 +157,8 @@ def run_worker(master, shard=None, lease_items=1, poll_s=0.05,
             obs_tracing.set_tracer(tracer)
     if spec.get("backend_mode"):
         backend.set_mode(spec["backend_mode"])
+    if spec.get("device") == "cuda" and torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()   # the card's peak from here
     graph = PipelineGraph(spec["cfg"], spec.get("stages"),
                           spec.get("source_channels", 2))
     # the blob's device or an error: resolve_device raises on "cuda"
@@ -105,6 +173,7 @@ def run_worker(master, shard=None, lease_items=1, poll_s=0.05,
         from repro_torch.dist.data_plane import StoreDataPlane
         plane = StoreDataPlane(dp_spec["dir"])
 
+    part = _Part(plan.device)
     launches0 = kernels.launches()
     lease_items = max(1, int(lease_items))
     idle = busy = 0.0
@@ -126,35 +195,41 @@ def run_worker(master, shard=None, lease_items=1, poll_s=0.05,
             if proxy.call("finished") or proxy.call("draining", worker):
                 idle += time.perf_counter() - t0
                 break
-            proxy.call("heartbeat", worker)
+            part.follow(proxy.call("heartbeat", worker))
             idle += time.perf_counter() - t0
             time.sleep(poll_s)
             continue
-        tracer.complete("lease", w0, worker=worker, ids=ids)
+        spans = part.tracer or tracer       # a marked part's, if open
+        spans.complete("lease", w0, worker=worker, ids=ids)
         w1 = time.time()
         if plane is None:
             items = list(zip(ids, proxy.call("fetch_many", worker, ids)))
-            tracer.complete("fetch_many", w1, worker=worker, n=len(ids))
+            spans.complete("fetch_many", w1, worker=worker, n=len(ids))
         else:
             items = [(wid, None if keys[wid] is None
                       else plane.fetch_chunks(keys[wid])) for wid in ids]
-            tracer.complete("fetch_store", w1, worker=worker, n=len(ids))
+            spans.complete("fetch_store", w1, worker=worker, n=len(ids))
         idle += time.perf_counter() - t0
         for wid, chunks in items:
             if chunks is None:
                 # this lease lost a redelivery race: the id completed
                 # before the fetch, the master already has its result
                 continue
-            t1 = time.perf_counter()
-            w2 = time.time()
             # a heartbeat per item bounds the lease-expiry exposure to one
-            # item's compute time, not the whole lease batch's
-            proxy.call("heartbeat", worker)
+            # item's compute time, not the whole lease batch's; its reply
+            # may start or end a measured part, outside the item's clocks
+            th = time.perf_counter()
+            part.follow(proxy.call("heartbeat", worker))
+            t1 = time.perf_counter()
+            idle += t1 - th
+            w2 = time.time()
             res = plan(np.asarray(chunks, np.float32))
             payload = pack_result(res)
             busy += time.perf_counter() - t1
-            tracer.complete("compute", w2, worker=worker, wid=wid,
-                            n_kept=int(res.n_kept))
+            part.note(wid, res.src_bytes)
+            spans = part.tracer or tracer
+            spans.complete("compute", w2, worker=worker, wid=wid,
+                           n_kept=int(res.n_kept))
             t2 = time.perf_counter()
             w3 = time.time()
             if plane is None:
@@ -162,9 +237,10 @@ def run_worker(master, shard=None, lease_items=1, poll_s=0.05,
             else:
                 proxy.call("push_result", worker, wid,
                            plane.push(keys[wid], payload))
-            tracer.complete("push", w3, worker=worker, wid=wid)
+            spans.complete("push", w3, worker=worker, wid=wid)
             idle += time.perf_counter() - t2
             done += 1
+    part.end()
     now = kernels.launches()
     stats = {"idle_s": idle, "busy_s": busy, "chunks": done,
              "device": plan.device.type,
@@ -172,9 +248,13 @@ def run_worker(master, shard=None, lease_items=1, poll_s=0.05,
              # what this process's allocator holds on the card: freed at
              # its exit, with its context
              "cuda_reserved_bytes": torch.cuda.memory_reserved(plan.device)
-             if plan.device.type == "cuda" else 0}
-    if tracer.enabled:
-        stats["spans"] = tracer.drain()
+             if plan.device.type == "cuda" else 0,
+             "card": card_record(plan.device, spec.get("cards", ()))}
+    if part.report is not None:
+        stats["part"] = part.report
+    events = part.spans + (tracer.drain() if tracer.enabled else [])
+    if events:
+        stats["spans"] = events
     try:
         proxy.call("bye", worker, stats)
     finally:

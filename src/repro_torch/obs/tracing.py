@@ -50,6 +50,12 @@ no-op context manager after one check of the profiler's state.
 `timed(name)` is a span that also keeps its own host seconds (`.s`, by
 `time.perf_counter`, on or off): the one clock of an interval whose length
 the caller also needs, such as a plan's `timings`.
+
+`CardRecorder` records one card's device operations (kernels, copies,
+sets) over a part of a run through `torch.profiler` with CUDA activity
+alone, in the process that drives the card: a worker process records its
+own card where the master asks it to (`dist.worker`). Nothing is built
+until a part is asked for.
 """
 from __future__ import annotations
 
@@ -324,6 +330,64 @@ def instant(name, **args):
     t = _TRACER
     if t.enabled:
         t.instant(name, **args)
+
+
+# ------------------------------------------------------- card recording
+
+class CardRecorder:
+    """One card's device operations over a part of a run: `start()`,
+    `stop()`, then `result()`. Both ends wait for the card, so every
+    operation recorded belongs to the part. With no card, or with a
+    profiler already recording in this process, it records nothing and
+    the part keeps only its length."""
+
+    TOP = 10        # operation names kept, those that took most time
+
+    def __init__(self, device):
+        self._prof = None
+        self._cuda = device.type == "cuda"
+        if self._cuda and not _profiling():
+            from torch.profiler import ProfilerActivity, profile
+            self._prof = profile(activities=[ProfilerActivity.CUDA])
+        self._t0 = self._t1 = None
+
+    def start(self):
+        if self._cuda:
+            torch.cuda.synchronize()
+        if self._prof is not None:
+            self._prof.start()
+        self._t0 = time.perf_counter()
+
+    def stop(self):
+        if self._cuda:
+            torch.cuda.synchronize()
+        self._t1 = time.perf_counter()
+        if self._prof is not None:
+            self._prof.stop()
+
+    def result(self):
+        """{"window_s": the part's host seconds, "busy": [[start, end]]
+        the union of the device operations in seconds on the profiler's
+        clock, "ops": {name: seconds} the `TOP` names by device time}."""
+        spans, ops = [], {}
+        if self._prof is not None:
+            from torch.autograd import DeviceType
+            for e in self._prof.profiler.kineto_results.events():
+                if e.device_type() != DeviceType.CUDA:
+                    continue
+                s = e.start_ns() / 1e9
+                d = e.duration_ns() / 1e9
+                spans.append((s, s + d))
+                ops[e.name()] = ops.get(e.name(), 0.0) + d
+        busy = []
+        for s, e in sorted(spans):
+            if busy and s <= busy[-1][1]:
+                busy[-1][1] = max(busy[-1][1], e)
+            else:
+                busy.append([s, e])
+        top = sorted(ops.items(), key=lambda kv: -kv[1])[:self.TOP]
+        return {"window_s": self._t1 - self._t0, "busy": busy,
+                "ops": dict(top)}
 
 
 # ---------------------------------------------------------------- schema

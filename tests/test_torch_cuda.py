@@ -808,3 +808,31 @@ def test_lm_train_step_on_card_matches_cpu(card, arch, quantize,
         err = (gparams[name].detach().cpu() - p.detach()).abs()
         allowed = 1e-5 * (1 + p.detach().abs()) + 2 * lr * small
         assert bool((err <= allowed).all()), (name, float(err.max()))
+
+
+def test_two_workers_report_two_cards(card):
+    """The sharded plan's process fleet over two cards: each worker is
+    pinned to a card of its own and reports it in its `bye`, in this
+    process's numbering, with the card's name and a peak of allocated
+    memory above 0; the masks equal two_phase's on the card, the cleaned
+    rows within 1e-5 of the batch's largest sample."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: one worker process a card")
+    make = audio_batch_maker(seed=31, batch_long_chunks=1)
+    stream = [(w, (make(w)[0], None)) for w in range(4)]
+    pre = Preprocessor(cfg, plan="sharded", shards=2, transport="proc",
+                       stall_timeout_s=300.0)
+    got = list(pre.run(stream))
+    assert [r.wid for r in got] == [0, 1, 2, 3]
+    ref = Preprocessor(cfg)
+    for r in got:
+        want = ref(make(r.wid)[0])
+        np.testing.assert_array_equal(np.asarray(r.det.keep),
+                                      want.det.keep.cpu().numpy())
+        np.testing.assert_allclose(r.cleaned, want.cleaned, rtol=0,
+                                   atol=1e-5 * np.abs(want.cleaned).max(initial=0.0))
+    cards = {st.worker: st.report["card"] for st in pre.plan.worker_stats}
+    assert sorted(c["index"] for c in cards.values()) == [0, 1]
+    for c in cards.values():
+        assert c["name"] == torch.cuda.get_device_name(c["index"])
+        assert c["memory_peak_bytes"] > 0
